@@ -104,6 +104,7 @@ def pytest_configure(config):
         "zstd: tests needing a zstd library (compression.zstd or zstandard);"
         " auto-skipped when neither is importable",
     )
+    config.addinivalue_line("markers", "cuda: repro_torch tests that need a CUDA device and nvcc; skipped without them")
 
 
 def pytest_collection_modifyitems(config, items):
