@@ -17,7 +17,16 @@ Phases, each fatal on failure:
      byte for byte, with random preads; every kernel must have launched.
      The gzip read runs under torch.profiler (CUDA activity) for the
      device's busy time;
-  5. each kernel at the shape the main path launched it most, then one JSON
+  5. the ops path (repro_torch.kernels.ops): the precode kernel against its
+     plain version, exact, at 1 block, a ragged count, an unaligned start,
+     a buffer end, the whole gzip of phase 4 and a Silesia-sized launch;
+     then, with every count at 0, ops.precode_candidates over that gzip
+     (equal as a set to the host finder's candidates, which are timed
+     beside it) and over a gzip of the corpus's first MiB (containing every
+     dynamic block start the host decoder finds), ops.marker_replace and
+     ops.crc32_parallel against the host path and zlib; every kernel of
+     the ops path must have launched;
+  6. each kernel at the shape its path launched it most, then one JSON
      line of kernel results and, last, the {"ok": true, ...} line.
 
 Without a CUDA device, or without the rest of the repository beside it, the
@@ -31,6 +40,7 @@ import base64
 import gzip
 import json
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -43,12 +53,21 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-# Integer ALU rate: the fp32 67 TFLOP/s counts an FMA as two operations on
-# 128 lanes/clk/SM; 32-bit integer logic and shifts issue on 64 lanes/clk/SM.
-INT32_OPS_PER_S = 67e12 / 2 / 2
+# Integer operation rate: the fp32 67 TFLOP/s counts an FMA as two
+# operations on 128 lanes/clk/SM. Integer logic, shifts, adds, compares and
+# byte permutes issue on the ALU pipe (64 lanes/clk/SM) and IMAD, which nvcc
+# also uses for moves and adds, on the FMA pipe (64 more), so the least time
+# for integer work is set by the SM's issue limit of 128 lanes/clk/SM.
+INT32_OPS_PER_S = 67e12 / 2
 TABLE_SIZE = 256 + 32768
 TILE = 8 * 1024
 SILESIA_BYTES = 211_938_580  # the Silesia corpus, as one tar
+SILESIA_GZ_BYTES = 68_000_000  # about its gzip -6 size
+HALO = 74  # bits a precode offset reads
+# Integer operations per offset of csrc/precode_check.cu, as its source
+# writes them: 3 funnel shifts, 10 for steps 1-3 and HCLEN, 7 for the masked
+# precode word, 4 per precode length (76), 5 for the result.
+PRECODE_OPS_PER_OFFSET = 101
 
 
 def log(*parts) -> None:
@@ -91,13 +110,31 @@ def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
     return median_ms(graph.replay, reps, warmup=1) / launches
 
 
+def sass_opcodes(name: str) -> dict:
+    """Opcode counts of the SASS that nvcc built for ``csrc/<name>.cu``
+    (cuobjdump beside nvcc), or {} where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    counts = {}
+    for line in sass.splitlines():
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
 def bound(nbytes: float, ops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
-# phase 3/5: kernels against their plain versions
+# phases 3, 5 and 6: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def marker_case(n_tiles: int, n_tables: int, gen, device, pad: bool = False, launches: int = 20):
@@ -183,6 +220,56 @@ def crc_case(batch: int, seg_len: int, gen, device, unbatched: bool = False):
         "library_ms": None,
         "bound_ms": t_bound, "bound_by": by,
     }
+
+
+def precode_case(data, start_bit: int, n: int, shape: str, launches: int = 20):
+    """The precode kernel against its plain version on ``data`` (uint8 on
+    the card), exact, timed like the other kernels."""
+    import torch
+
+    from repro_torch.kernels import precode_check as pc
+
+    call = lambda: pc.precode_check_packed(data, start_bit, n)  # noqa: E731
+    plain_call = lambda: pc.precode_check_packed_plain(data, start_bit, n)  # noqa: E731
+    out, plain = call(), plain_call()
+    torch.cuda.synchronize()
+    err = int((out.to(torch.int32) - plain.to(torch.int32)).abs().max())
+    if not torch.equal(out, plain):
+        raise AssertionError("precode kernel != plain at %s (max err %d)" % (shape, err))
+    n_read = min(-(-(start_bit + n + HALO) // 8), data.numel()) - start_bit // 8
+    t_bound, by = bound(n_read + n, PRECODE_OPS_PER_OFFSET * n)
+    row = {
+        "kernel": "precode_check", "shape": shape, "start_bit": start_bit, "n_offsets": n,
+        "n_bytes": data.numel(), "candidates": int(out.sum(dtype=torch.int64)),
+        "max_abs_err": err,
+        "kernel_ms": graph_ms(call, launches),
+        "call_ms": median_ms(call, 20),
+        "plain_ms": median_ms(plain_call, 3, warmup=1),
+        "library_ms": None,
+        "bound_ms": t_bound, "bound_by": by,
+    }
+    del out, plain
+    return row
+
+
+def check_precode(gen, device, gz: bytes):
+    import torch
+
+    def rand(nbytes):
+        return torch.randint(0, 256, (nbytes,), generator=gen, device=device,
+                             dtype=torch.int32).to(torch.uint8)
+
+    rows = [
+        precode_case(rand(300), 0, 2048, "1 block"),
+        precode_case(rand(660), 0, 5000, "ragged n"),
+        precode_case(rand(300), 13, 2049, "unaligned start_bit"),
+        precode_case(rand(-(-(5 + 100_000) // 8)), 5, 100_000, "buffer end"),
+    ]
+    data = torch.frombuffer(bytearray(gz), dtype=torch.uint8).to(device)
+    rows.append(precode_case(data, 0, 8 * len(gz) - HALO, "main path: gzip of phase 4"))
+    rows.append(precode_case(rand(SILESIA_GZ_BYTES), 0, 8 * SILESIA_GZ_BYTES - HALO,
+                             "Silesia-sized: %d random bytes" % SILESIA_GZ_BYTES, launches=5))
+    return rows
 
 
 def check_kernels(gen, device):
@@ -295,7 +382,76 @@ def main_path(seed: int, mib: int, workers: int):
         raise AssertionError("engine fell back to the CPU: %s" % stats["fallbacks"])
     if min(launches.values()) < 1:
         raise AssertionError("a kernel never launched on the main path: %s" % launches)
-    return result, engine
+    return result, engine, corpus, gz
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the ops path
+# ---------------------------------------------------------------------------
+
+def ops_path(seed: int, corpus: bytes, gz: bytes):
+    """The kernel-level entry points on the card, checked against the host.
+
+    The host's answers are made first; then every launch count is set to 0,
+    the three entry points run, and the counts are read."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import BitReader, DeflateChunkDecoder, parse_gzip_header
+    from repro_torch.core.block_finder import scan_dynamic_candidates
+    from repro_torch.core.markers import replace_markers
+    from repro_torch.kernels import crc32 as kc
+    from repro_torch.kernels import marker_replace as mr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import precode_check as pc
+
+    end = 8 * len(gz) - HALO
+    t0 = time.perf_counter()
+    host = [c for c in scan_dynamic_candidates(gz, 0, 8 * len(gz), full_validation=False)
+            if c < end]
+    host_s = time.perf_counter() - t0
+    head = gzip.compress(corpus[: 1 << 20], 6, mtime=0)
+    br = BitReader(head)
+    parse_gzip_header(br)
+    blocks = DeflateChunkDecoder(head).decode_chunk(br.bit_pos, len(head) * 8, window=b"").blocks
+    dynamic = [b.bit_offset for b in blocks if b.block_type == 2 and not b.is_final]
+    if not dynamic:
+        raise AssertionError("the host decoder found no dynamic block in the first MiB")
+    rng = np.random.default_rng(seed + 2)
+    window = rng.integers(0, 256, 32768, dtype=np.uint8).tobytes()
+    syms = rng.integers(0, TABLE_SIZE, 1 << 20, dtype=np.int64).astype(np.uint16)
+    blobs = [corpus[: 1 << 20], gz, b"", b"x"]
+
+    for mod in (pc, mr, kc):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    cands = ops.precode_candidates(gz)
+    cands_s = time.perf_counter() - t0
+    head_cands = set(ops.precode_candidates(head).tolist())
+    replaced = ops.marker_replace(syms, window)
+    crcs = [ops.crc32_parallel(b) for b in blobs]
+    torch.cuda.synchronize()
+    launches = {"precode_check": pc.launches, "marker_replace": mr.launches, "crc32": kc.launches}
+
+    if set(cands.tolist()) != set(host):
+        raise AssertionError("precode_candidates: %d candidates, the host finder %d"
+                             % (cands.size, len(host)))
+    missing = [b for b in dynamic if b not in head_cands]
+    if missing:
+        raise AssertionError("precode_candidates misses dynamic blocks at %s" % missing[:8])
+    if not np.array_equal(replaced, replace_markers(syms, window)):
+        raise AssertionError("ops.marker_replace differs from the host path")
+    if crcs != [zlib.crc32(b) for b in blobs]:
+        raise AssertionError("ops.crc32_parallel differs from zlib")
+    if min(launches.values()) < 1:
+        raise AssertionError("a kernel never launched on the ops path: %s" % launches)
+    return {
+        "gzip_bytes": len(gz), "offsets": end, "candidates": len(host),
+        "host_finder_s": host_s, "precode_candidates_s": cands_s,
+        "precode_candidates_ms": median_ms(lambda: ops.precode_candidates(gz), 5),
+        "head_gzip_bytes": len(head), "head_dynamic_blocks": len(dynamic),
+        "launches": launches,
+    }
 
 
 def main() -> int:
@@ -334,7 +490,7 @@ def main() -> int:
         log(json.dumps(row))
 
     workers = min(16, os.cpu_count() or 1)
-    path, engine = main_path(args.seed, args.mib, workers)
+    path, engine, corpus, gz = main_path(args.seed, args.mib, workers)
     log("main path: gzip %.3f MB/s, bgzf %.3f MB/s, %d workers"
         % (path["gzip_MBps"], path["bgzf_MBps"], workers))
     log("gzip read: device busy %.3f ms of %.3f s (idle share %s); device ops %s"
@@ -352,18 +508,38 @@ def main() -> int:
     for row in at_path:
         log(json.dumps(dict(row, at="main path shape")))
 
+    precode_rows = check_precode(gen, device, gz)
+    for row in precode_rows:
+        log(json.dumps(row))
+    opcodes = sass_opcodes("precode_check")
+    log("precode_check SASS: %d instructions, 8 offsets a thread; opcodes %s"
+        % (sum(opcodes.values()), json.dumps(opcodes)))
+    ops = ops_path(args.seed, corpus, gz)
+    log("ops path: host finder %.3f s, ops.precode_candidates %.6f s (median %.3f ms) over %d "
+        "offsets, %d candidates; first MiB: %d dynamic blocks, all among the candidates; "
+        "launches %s" % (ops["host_finder_s"], ops["precode_candidates_s"],
+                         ops["precode_candidates_ms"], ops["offsets"], ops["candidates"],
+                         ops["head_dynamic_blocks"], json.dumps(ops["launches"])))
+    at_path.append(next(r for r in precode_rows if r["shape"].startswith("main path")))
+
     sources = {
         "marker_replace": ("src/repro_torch/kernels/csrc/marker_replace.cu",
                            "src/repro/kernels/marker_replace.py:101"),
         "crc32": ("src/repro_torch/kernels/csrc/crc32.cu", "src/repro/kernels/crc32.py:117"),
+        "precode_check": ("src/repro_torch/kernels/csrc/precode_check.cu",
+                          "src/repro/kernels/precode_check.py:83"),
     }
+    # Each kernel's launches on its own path: the gzip read for stage 2, the
+    # ops path for the precheck.
+    path_launches = dict(path["launches"], precode_check=ops["launches"]["precode_check"])
+    checked = rows + at_path + precode_rows
     kernels = []
     for row in at_path:
         name = row["kernel"]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": path["launches"][name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows + at_path if r["kernel"] == name),
+            "replaces": sources[name][1], "launches": path_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in checked if r["kernel"] == name),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
@@ -371,7 +547,9 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
             "card": card, "build_s": build_s, "kernel_rows": rows, "at_path": at_path,
-            "main_path": path, "kernels": kernels,
+            "main_path": path, "precode_rows": precode_rows, "ops_path": ops,
+            "precode_sass_opcodes": opcodes,
+            "kernels": kernels,
         }, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("marker_replace", "crc32")
+SOURCES = ("marker_replace", "crc32", "precode_check")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

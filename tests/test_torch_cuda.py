@@ -16,9 +16,12 @@ import pytest
 import torch
 
 from repro_torch.core import ParallelGzipReader
+from repro_torch.core.block_finder import scan_dynamic_candidates
 from repro_torch.core.markers import replace_markers as cpu_replace
 from repro_torch.kernels import crc32 as tcrc
 from repro_torch.kernels import marker_replace as tmr
+from repro_torch.kernels import ops
+from repro_torch.kernels import precode_check as tpc
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.engine import TorchDecodeEngine
 
@@ -129,3 +132,69 @@ def test_reader_on_the_default_engine(cuda, rng):
         for off in (0, 123_457, len(data) - 10):
             assert r.pread(off, 5000) == data[off : off + 5000]
     assert tmr.launches > 0 and tcrc.launches > 0
+
+
+@pytest.mark.parametrize("tight", [False, True], ids=["roomy", "buffer_end"])
+@pytest.mark.parametrize("start_bit,n", [(0, 1), (3, 2047), (13, 2049), (0, 5000), (5, 1 << 20)])
+def test_precode_kernel_matches_plain(cuda, rng, start_bit, n, tight):
+    """With ``tight`` the buffer ends at the last offset, so the last windows
+    read past it (as zeros)."""
+    nbytes = -(-(start_bit + n) // 8) + (0 if tight else 16)
+    data = torch.from_numpy(rng.integers(0, 256, nbytes, dtype=np.uint8)).to(cuda)
+    before = tpc.launches
+    out = tpc.precode_check_packed(data, start_bit, n)
+    torch.cuda.synchronize()
+    assert tpc.launches == before + 1
+    assert torch.equal(out, tpc.precode_check_packed_plain(data, start_bit, n))
+
+
+def test_precode_blocks_kernel(cuda, rng):
+    planes = torch.from_numpy(rng.integers(0, 2, (5, tpc.BLOCK), dtype=np.uint8))
+    planes[-1] = 0
+    assert torch.equal(tpc.precode_check_blocks(planes.to(cuda)).cpu(),
+                       tpc.precode_check_blocks(planes))
+
+
+def test_ops_on_the_card_match_host_path(cuda, rng):
+    tpc.reset_launches()
+    for nbytes, start, end in ((1000, 0, None), (40_000, 13, 200_001), (1 << 20, 0, None)):
+        blob = rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+        got = ops.precode_candidates(blob, start, end)
+        np.testing.assert_array_equal(got, ops.precode_candidates(blob, start, end, device="cpu"))
+        stop = nbytes * 8 - tpc.HALO if end is None else end
+        host = [c for c in scan_dynamic_candidates(blob, start, nbytes * 8, full_validation=False)
+                if c < stop]
+        assert got.tolist() == host
+    assert tpc.launches == 3
+    comp = gzip.compress(base64_text(rng, 200_000), 6)
+    assert ops.precode_candidates(comp).size > 0
+    window = rng.integers(0, 256, 32768, dtype=np.uint8).tobytes()
+    for n in (0, 1, 8209, 100_000):
+        syms = rng.integers(0, TABLE_SIZE, n, dtype=np.int64).astype(np.uint16)
+        np.testing.assert_array_equal(ops.marker_replace(syms, window), cpu_replace(syms, window))
+        np.testing.assert_array_equal(ops.marker_replace(syms, None), cpu_replace(syms, None))
+    for n in (0, 1, 1023, 4096, 100_001):
+        blob = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        assert ops.crc32_parallel(blob) == zlib.crc32(blob)
+
+
+def test_precode_cuda_never_takes_the_plain_version(cuda, rng, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(tpc, "precode_check_packed_plain", refuse)
+    monkeypatch.setattr(tmr, "marker_replace_tiles_multi_plain", refuse)
+    monkeypatch.setattr(tcrc, "crc32_segments_batched_plain", refuse)
+    before = tpc.launches
+    ops.precode_candidates(rng.integers(0, 256, 5000, dtype=np.uint8).tobytes())
+    tpc.precode_check_blocks(torch.zeros((2, tpc.BLOCK), dtype=torch.uint8, device=cuda))
+    ops.marker_replace(np.zeros(100, np.uint16), None)
+    ops.crc32_parallel(b"abc" * 1000)
+    torch.cuda.synchronize()
+    assert tpc.launches == before + 2
+
+
+def base64_text(rng, n):
+    import base64
+
+    return base64.encodebytes(rng.integers(0, 256, n * 3 // 4, dtype=np.uint8).tobytes())[:n]
