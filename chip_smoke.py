@@ -40,7 +40,6 @@ import base64
 import gzip
 import json
 import os
-import re
 import statistics
 import struct
 import subprocess
@@ -64,10 +63,18 @@ TILE = 8 * 1024
 SILESIA_BYTES = 211_938_580  # the Silesia corpus, as one tar
 SILESIA_GZ_BYTES = 68_000_000  # about its gzip -6 size
 HALO = 74  # bits a precode offset reads
-# Integer operations per offset of csrc/precode_check.cu, as its source
-# writes them: 3 funnel shifts, 10 for steps 1-3 and HCLEN, 7 for the masked
-# precode word, 4 per precode length (76), 5 for the result.
-PRECODE_OPS_PER_OFFSET = 101
+# The least integer work of the precheck, counted on the run's own data (a
+# cascade that ends early counts what its inputs need), not this kernel's
+# instruction count:
+#   * steps 1-3 for every offset, bit-sliced 32 offsets to a word: 7 funnel
+#     shifts for the bit planes of header bits 0-2 and 4-7, then 3
+#     three-input logic operations (final bit 0, type (0, 1), HLIT < 30);
+#   * step 4 only for the offsets that pass them: 2 funnel shifts for the
+#     precode bits, 2 to read HCLEN, 3 per precode length read (extract,
+#     look the term up, add; HCLEN + 4 of them) and 1 compare.
+PRECODE_SLICED_OPS = 10  # per 32 offsets
+PRECODE_SURVIVOR_OPS = 5  # per offset passing steps 1-3
+PRECODE_LENGTH_OPS = 3  # per precode length such an offset reads
 
 
 def log(*parts) -> None:
@@ -108,24 +115,6 @@ def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
         for _ in range(launches):
             fn()
     return median_ms(graph.replay, reps, warmup=1) / launches
-
-
-def sass_opcodes(name: str) -> dict:
-    """Opcode counts of the SASS that nvcc built for ``csrc/<name>.cu``
-    (cuobjdump beside nvcc), or {} where the toolkit has no cuobjdump."""
-    from repro_torch.kernels import _build
-
-    tool = Path(_build.nvcc()).parent / "cuobjdump"
-    if not tool.exists():
-        return {}
-    sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
-                          capture_output=True, text=True, timeout=120, check=True).stdout
-    counts = {}
-    for line in sass.splitlines():
-        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if m:
-            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
-    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
 
 
 def bound(nbytes: float, ops: float):
@@ -222,6 +211,27 @@ def crc_case(batch: int, seg_len: int, gen, device, unbatched: bool = False):
     }
 
 
+def precode_work(data, start_bit: int, n: int):
+    """(offsets passing steps 1-3, precode lengths those offsets read) over
+    bits ``start_bit .. start_bit + n`` of ``data`` (uint8), bytes past its
+    end reading as zero: the data-dependent part of the precheck's least
+    work."""
+    import torch
+    import torch.nn.functional as F
+
+    d = F.pad(data.to(torch.int64), (0, 4))
+    word = d[:-3] | d[1:-2] << 8 | d[2:-1] << 16 | d[3:] << 24  # bits 8 b .. 8 b + 31
+    pos = torch.arange(word.numel(), device=data.device, dtype=torch.int64) * 8
+    survivors = lengths = 0
+    for s in range(8):
+        w = word >> s
+        at = pos + s
+        ok = ((w & 7) == 4) & (((w >> 3) & 31) < 30) & (at >= start_bit) & (at < start_bit + n)
+        survivors += int(ok.sum())
+        lengths += int((((w >> 13) & 15) + 4).mul_(ok).sum())
+    return survivors, lengths
+
+
 def precode_case(data, start_bit: int, n: int, shape: str, launches: int = 20):
     """The precode kernel against its plain version on ``data`` (uint8 on
     the card), exact, timed like the other kernels."""
@@ -237,10 +247,14 @@ def precode_case(data, start_bit: int, n: int, shape: str, launches: int = 20):
     if not torch.equal(out, plain):
         raise AssertionError("precode kernel != plain at %s (max err %d)" % (shape, err))
     n_read = min(-(-(start_bit + n + HALO) // 8), data.numel()) - start_bit // 8
-    t_bound, by = bound(n_read + n, PRECODE_OPS_PER_OFFSET * n)
+    survivors, lengths = precode_work(data, start_bit, n)
+    ops = (PRECODE_SLICED_OPS * -(-n // 32) + PRECODE_SURVIVOR_OPS * survivors
+           + PRECODE_LENGTH_OPS * lengths)
+    t_bound, by = bound(n_read + n, ops)
     row = {
         "kernel": "precode_check", "shape": shape, "start_bit": start_bit, "n_offsets": n,
         "n_bytes": data.numel(), "candidates": int(out.sum(dtype=torch.int64)),
+        "passed_steps_1_3": survivors, "lengths_read": lengths, "bound_ops": ops,
         "max_abs_err": err,
         "kernel_ms": graph_ms(call, launches),
         "call_ms": median_ms(call, 20),
@@ -511,9 +525,6 @@ def main() -> int:
     precode_rows = check_precode(gen, device, gz)
     for row in precode_rows:
         log(json.dumps(row))
-    opcodes = sass_opcodes("precode_check")
-    log("precode_check SASS: %d instructions, 8 offsets a thread; opcodes %s"
-        % (sum(opcodes.values()), json.dumps(opcodes)))
     ops = ops_path(args.seed, corpus, gz)
     log("ops path: host finder %.3f s, ops.precode_candidates %.6f s (median %.3f ms) over %d "
         "offsets, %d candidates; first MiB: %d dynamic blocks, all among the candidates; "
@@ -548,7 +559,6 @@ def main() -> int:
         Path(args.out).write_text(json.dumps({
             "card": card, "build_s": build_s, "kernel_rows": rows, "at_path": at_path,
             "main_path": path, "precode_rows": precode_rows, "ops_path": ops,
-            "precode_sass_opcodes": opcodes,
             "kernels": kernels,
         }, indent=1))
     log(json.dumps({"kernels": kernels}))

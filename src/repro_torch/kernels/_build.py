@@ -23,6 +23,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("marker_replace", "crc32", "precode_check")
 
@@ -34,6 +36,22 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[tuple, ctypes._CFuncPtr] = {}
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with its index: a card (``"cuda"``,
+    where the kernels run; raises without one) or the host (``"cpu"``,
+    where the plain versions run)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device=%r needs a CUDA device; pass device='cpu' to run the "
+                               "plain versions" % str(device))
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError("device must be 'cuda' or 'cpu', got %r" % str(device))
+    return dev
 
 
 def build_dir() -> Path:

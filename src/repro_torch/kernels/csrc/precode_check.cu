@@ -18,15 +18,13 @@
 // Here the input is the compressed bytes themselves, the output one uint8
 // per offset.
 //
-// Bound: integer operations, not bytes. Per offset the kernel moves 1/8 B in
-// and 1 B out, but runs the whole cascade. Counted as the source writes
-// them: 3 funnel shifts for the window, 10 for steps 1-3 and HCLEN, 7 to
-// build and mask the precode word, 4 per precode length (shift, and, byte
-// permute, add: 76 for 19) and 5 for the result, 101 in all
-// (PRECODE_OPS_PER_OFFSET in chip_smoke.py), over the SM's issue limit of
-// 128 integer lanes a clock (ALU and FMA pipes together). nvcc emits about
-// 120 SASS instructions per offset, most of the excess in the 64-bit
-// shifts of the precode word; chip_smoke.py prints the opcode counts.
+// Bound: the work itself is bound by bytes (1/8 B in and 1 B out per
+// offset): its least integer work, steps 1-3 bit-sliced over 32 offsets a
+// word and step 4 only for the offsets that pass them (about 1 in 9), takes
+// less time than the bytes (chip_smoke.py counts it on the run's data).
+// This kernel is bound by integer operations instead: it runs the whole
+// cascade for every offset, about 120 SASS instructions each, most of
+// them in the 19 precode lengths and the 64-bit shifts of the precode word.
 //
 // Design (simple first version):
 //   * one block of 256 threads per 2048 offsets; each thread owns 8
@@ -38,9 +36,9 @@
 //   * the cascade is branch-free; the Kraft terms come from one byte
 //     permute of an 8-entry table (cl = 0 gives 0, so masking the precode
 //     to its HCLEN + 4 lengths drops the inactive ones).
-// A later version could evaluate 32 offsets per word bit-sliced (steps 1-3
-// are then a handful of logic operations for 32 offsets), which cuts the
-// operation count several-fold.
+// A later version could evaluate steps 1-3 bit-sliced, 32 offsets per word
+// (a handful of logic operations for 32 offsets), and run the Kraft step
+// only for the offsets that pass them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -177,21 +177,12 @@ class TorchDecodeEngine:
         max_delay_s: float = 0.002,
         crossover: Optional[Dict[str, Optional[int]]] = None,
     ):
-        self.device = torch.device(device)
+        self.device = _build.resolve_device(device)
         if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "TorchDecodeEngine(device=%r) needs a CUDA device; pass "
-                    "device='cpu' to run the plain versions" % device
-                )
-            if self.device.index is None:
-                self.device = torch.device("cuda", torch.cuda.current_device())
             _build.build()  # raises when nvcc is missing or a kernel fails to build
             self._stream = torch.cuda.Stream(self.device)
-        elif self.device.type == "cpu":
-            self._stream = None
         else:
-            raise ValueError("device must be 'cuda' or 'cpu', got %r" % device)
+            self._stream = None
 
         self.max_batch_tiles = max(1, max_batch_tiles)
         self.max_tables = _pow2_at_least(max(1, max_tables))

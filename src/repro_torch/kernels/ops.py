@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.crc32 import combine_parts
+from ._build import resolve_device
 from .crc32 import N_SEGMENTS, SEG_COLS, SEG_ROWS, crc32_segments
 from .marker_replace import TILE, TILE_COLS, TILE_ROWS, marker_replace_tiles
 from .precode_check import HALO, precode_check_packed
@@ -29,37 +30,13 @@ _EMPTY_WINDOW_TABLES: Dict[torch.device, torch.Tensor] = {}
 _CRC_TABLES: Dict[torch.device, torch.Tensor] = {}
 
 
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("device=%r needs a CUDA device; pass device='cpu' to run the "
-                               "plain versions" % str(device))
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError("device must be 'cuda' or 'cpu', got %r" % str(device))
-    return dev
-
-
-def _to_device(host: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A device copy of the 1-D array ``host``, staged through pinned memory
-    when ``dev`` is a card."""
-    if dev.type == "cpu":
-        return torch.from_numpy(host.copy())
-    dtype = torch.from_numpy(np.empty(0, host.dtype)).dtype
-    staged = torch.empty(host.shape, dtype=dtype, pin_memory=True)
-    staged.numpy()[...] = host
-    return staged.to(dev, non_blocking=True)
-
-
 def replacement_table_device(window: Optional[bytes], device="cuda") -> torch.Tensor:
     """(TABLE_SIZE,) uint8 replacement table for ``window`` on ``device``.
 
     The empty-window table (every marker resolves to 0) is cached per
     device; real windows are content-dependent and built per call.
     """
-    dev = _device(device)
+    dev = resolve_device(device)
     if not window:
         table = _EMPTY_WINDOW_TABLES.get(dev)
         if table is None:
@@ -72,13 +49,13 @@ def replacement_table_device(window: Optional[bytes], device="cuda") -> torch.Te
 
 def marker_replace(symbols: np.ndarray, window: Optional[bytes], *, device="cuda") -> np.ndarray:
     """Resolve a uint16 marker stream to bytes through the marker kernel."""
-    dev = _device(device)
+    dev = resolve_device(device)
     n = symbols.shape[0]
     table = replacement_table_device(window, dev)
     n_tiles = max(1, -(-n // TILE))
     padded = np.zeros(n_tiles * TILE, dtype=np.uint16)
     padded[:n] = symbols
-    tiles = _to_device(padded, dev).reshape(n_tiles, TILE_ROWS, TILE_COLS)
+    tiles = torch.from_numpy(padded).to(dev).reshape(n_tiles, TILE_ROWS, TILE_COLS)
     out = marker_replace_tiles(tiles, table)
     return out.reshape(-1)[:n].cpu().numpy()
 
@@ -94,7 +71,7 @@ def precode_candidates(data: bytes, start_bit: int = 0, end_bit: Optional[int] =
     Callers confirm them with the strict host parse (steps 5-7), as the
     production finder does.
     """
-    dev = _device(device)
+    dev = resolve_device(device)
     total_bits = len(data) * 8
     if end_bit is None:
         end_bit = total_bits - HALO
@@ -106,8 +83,8 @@ def precode_candidates(data: bytes, start_bit: int = 0, end_bit: Optional[int] =
     first_byte = start_bit // 8
     rel = start_bit - first_byte * 8
     need_bytes = -(-(rel + n + HALO) // 8)
-    raw = np.frombuffer(data, np.uint8, count=need_bytes, offset=first_byte)
-    mask = precode_check_packed(_to_device(raw, dev), rel, n)
+    raw = np.frombuffer(data, np.uint8, count=need_bytes, offset=first_byte).copy()
+    mask = precode_check_packed(torch.from_numpy(raw).to(dev), rel, n)
     hits = torch.nonzero(mask).reshape(-1)
     return hits.cpu().numpy().astype(np.int64) + start_bit
 
@@ -116,14 +93,14 @@ def precode_candidates(data: bytes, start_bit: int = 0, end_bit: Optional[int] =
 
 def crc32_parallel(data: bytes, *, device="cuda") -> int:
     """CRC32 of ``data`` via N_SEGMENTS parallel lanes + GF(2) combine."""
-    dev = _device(device)
+    dev = resolve_device(device)
     n = len(data)
     if n == 0:
         return 0
     seg_len = max(1, -(-n // N_SEGMENTS))
     padded = np.zeros(N_SEGMENTS * seg_len, dtype=np.uint8)
     padded[:n] = np.frombuffer(data, np.uint8)
-    tiles = _to_device(padded, dev).reshape(SEG_ROWS, SEG_COLS, seg_len)
+    tiles = torch.from_numpy(padded).to(dev).reshape(SEG_ROWS, SEG_COLS, seg_len)
     table = _CRC_TABLES.get(dev)
     if table is None:
         table = _CRC_TABLES[dev] = make_crc_table().to(dev)
