@@ -7,10 +7,11 @@ Phases, each fatal on failure:
   1. the card's name and power limit, as nvidia-smi reports them;
   2. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
   3. every kernel against its plain PyTorch version on the card, exact, at
-     the engine's shapes and at one Silesia-sized launch, timed with CUDA
-     events: the kernel and the library call as device time (back-to-back
-     launches in a CUDA graph), the wrapper call and the plain version as
-     what a caller pays; beside them the memory bound;
+     the engine's shapes, at ragged CRC lanes and at one Silesia-sized
+     launch, timed with CUDA events: the kernel and the library call as
+     device time (back-to-back launches in a CUDA graph), the wrapper call
+     and the plain version as what a caller pays; beside them the memory
+     bound, and a near-empty launch timed the same way (launch_floor_ms);
   4. the main path: a base64 corpus (the paper's base64 workload) made from
      --seed, gzip -6 and BGZF, read through
      repro_torch.core.ParallelGzipReader on the default CUDA engine, checked
@@ -286,9 +287,18 @@ def check_precode(gen, device, gz: bytes):
     return rows
 
 
+def launch_floor_ms() -> float:
+    """Device time of a near-empty launch (``torch.cuda._sleep(0)``), timed
+    like the kernels: what is left of a small launch once its work is gone.
+    The port never calls it."""
+    import torch
+
+    return graph_ms(lambda: torch.cuda._sleep(0))
+
+
 def check_kernels(gen, device):
     rows = []
-    for n_tiles in (1, 32, 512):
+    for n_tiles in (1, 8, 16, 32, 512):  # 8, 16 and 32 x 1 are the engine's buckets
         for n_tables in (1, 8):
             rows.append(marker_case(n_tiles, n_tables, gen, device))
     rows.append(marker_case(32, 8, gen, device, pad=True))
@@ -296,6 +306,12 @@ def check_kernels(gen, device):
     for batch in (1, 8, 16):
         rows.append(crc_case(batch, 4096, gen, device))
     rows.append(crc_case(1, 4096, gen, device, unbatched=True))
+    rows.append(crc_case(1, 2048, gen, device))  # the gzip read's shape
+    # Ragged and unaligned lanes (ops.crc32_parallel passes ceil(n / 1024)),
+    # either side of the split threshold (127, 128), and that seg_len for
+    # the 12.76 MB gzip of the main path (12464).
+    for seg_len in (1, 7, 127, 128, 1000, 4097, 12464):
+        rows.append(crc_case(1, seg_len, gen, device))
     return rows
 
 
@@ -499,6 +515,8 @@ def main() -> int:
 
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
+    floor_ms = launch_floor_ms()
+    log("launch_floor_ms %.6f" % floor_ms)
     rows = check_kernels(gen, device)
     for row in rows:
         log(json.dumps(row))
@@ -557,8 +575,8 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
-            "card": card, "build_s": build_s, "kernel_rows": rows, "at_path": at_path,
-            "main_path": path, "precode_rows": precode_rows, "ops_path": ops,
+            "card": card, "build_s": build_s, "launch_floor_ms": floor_ms, "kernel_rows": rows,
+            "at_path": at_path, "main_path": path, "precode_rows": precode_rows, "ops_path": ops,
             "kernels": kernels,
         }, indent=1))
     log(json.dumps({"kernels": kernels}))

@@ -8,22 +8,34 @@
 // The reference took the bytes as int32; here they are uint8, 4x fewer bytes.
 //
 // Bound: bytes, 1 B read per input byte. The least time is B * 1024 *
-// seg_len bytes over 3.35 TB/s.
+// seg_len bytes over 3.35 TB/s. What bounds this kernel instead is the
+// table walk: one shared-memory lookup per byte, a dependent chain within a
+// thread, and lookups of random bytes that collide in the 32 banks.
 //
-// Design (simple first version): the table lives in shared memory, one
-// thread per lane, and each thread walks its lane 16 bytes per load.
+// Design: one warp per lane, split into 32 pieces. A lane is seen as
+// 32 * piece_len bytes with 32 * piece_len - seg_len zero bytes in front
+// (piece_len = 4 * ceil(seg_len / 128)); zeros ahead of a register that
+// starts at 0 leave it at 0, so every piece has the same length, even for a
+// ragged seg_len. In rounds of 64 bytes a piece, the warp stages its lane in
+// shared memory with coalesced 4-byte loads (byte loads where seg_len is not
+// a multiple of 4), 17 words a piece so that thread k reading piece k hits 32
+// distinct banks; thread k then runs its piece through the table from a zero
+// register. The 32 registers merge pairwise in 5 warp-shuffle levels by the
+// linear identity reg(A|B) = shift_|B|(reg(A)) ^ reg(B), where shift_n feeds
+// n zero bytes through a register: at level l thread k (k a multiple of
+// 2^(l+1)) takes thread k + 2^l's register and shifts its own by
+// piece_len * 2^l bytes. Last, the init: crc = ~(shift_seg_len(~0) ^ reg).
+// The host builds the 5 shift operators (32-word GF(2) matrices) and
+// shift_seg_len(~0) for each seg_len and passes them as kernel parameters,
+// so each matrix row is a constant-bank operand. At B = 1 and seg_len 2048
+// a thread's chain is 64 lookups and 5 matrix steps instead of 2048
+// lookups, and 32 768 threads run instead of 1024.
 //
-// The gap to the bound has two known causes, left for a later change:
-//   * lanes are contiguous along seg_len, so the 32 threads of a warp load
-//     from addresses seg_len bytes apart: every load touches 32 different
-//     sectors, and the L1 has to hold a sector per thread between steps
-//     (uncoalesced). Transposing at pack time, or staging a (32 x 16 B) tile
-//     through shared memory per step, would fix it;
-//   * B = 1 gives only 1024 threads (8 blocks) on 132 SMs, so the card is
-//     mostly idle; splitting each lane into sub-lanes combined on the device
-//     would give the card enough blocks. The table walk is also a serial
-//     dependency chain of a shared-memory load and two ALU operations per
-//     byte, so one lane runs at latency, not at bandwidth.
+// Below SPLIT_MIN_SEG_LEN (128, in crc32.py; the host passes piece_words 0)
+// one thread walks each lane, as the first version did. A first split
+// kernel cost 1.7 us more than that walk at 32 bytes, and the walk grows by
+// about 37 ns a byte on this card, so the two cross near 80 bytes; from 128
+// bytes on every piece is at least a whole word.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,6 +43,15 @@
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;  // lanes per block on the split path
+constexpr int ROUND_WORDS = 16;      // words of each piece staged per round
+constexpr int PIECE_STRIDE = ROUND_WORDS + 1;  // odd: conflict-free reads
+constexpr int LEVELS = 5;                      // log2(32 pieces)
+
+struct CombineOps {
+  uint32_t shift[LEVELS][32];  // row b: the image of register bit b
+  uint32_t init_shift;         // shift_seg_len(0xFFFFFFFF)
+};
 
 __device__ __forceinline__ uint32_t step_word(const uint32_t* lut, uint32_t crc, uint32_t w) {
 #pragma unroll
@@ -40,6 +61,7 @@ __device__ __forceinline__ uint32_t step_word(const uint32_t* lut, uint32_t crc,
   return crc;
 }
 
+// One thread per lane (seg_len below SPLIT_MIN_SEG_LEN).
 __global__ void __launch_bounds__(THREADS)
 crc32_lanes_kernel(const uint8_t* __restrict__ data, const uint32_t* __restrict__ table,
                    uint32_t* __restrict__ out, int64_t n_lanes, int64_t seg_len) {
@@ -65,19 +87,111 @@ crc32_lanes_kernel(const uint8_t* __restrict__ data, const uint32_t* __restrict_
   out[lane] = ~crc;
 }
 
+// Word of the lane at byte offset v (a multiple of 4 when ALIGNED); bytes
+// before the lane (v < 0) are the zero padding.
+template <bool ALIGNED>
+__device__ __forceinline__ uint32_t load_word(const uint8_t* __restrict__ p, int64_t v) {
+  if (ALIGNED) return v < 0 ? 0u : __ldg(reinterpret_cast<const uint32_t*>(p + v));
+  uint32_t w = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    if (v + b >= 0) w |= (uint32_t)__ldg(p + v + b) << (8 * b);
+  }
+  return w;
+}
+
+// One warp per lane. ALIGNED: seg_len % 4 == 0, so every lane starts on a
+// word and the padding is whole words.
+template <bool ALIGNED>
+__global__ void __launch_bounds__(THREADS)
+crc32_split_kernel(const uint8_t* __restrict__ data, const uint32_t* __restrict__ table,
+                   uint32_t* __restrict__ out, int64_t n_lanes, int64_t seg_len,
+                   int piece_words, const __grid_constant__ CombineOps ops) {
+  __shared__ uint32_t lut[256];
+  __shared__ uint32_t stage[WARPS][32 * PIECE_STRIDE];
+  const int warp = threadIdx.x >> 5;
+  const int k = threadIdx.x & 31;
+  const int64_t lane = (int64_t)blockIdx.x * WARPS + warp;
+  const bool live = lane < n_lanes;
+  const uint8_t* p = data + lane * seg_len;
+  const int64_t pad = 128LL * piece_words - seg_len;
+  uint32_t* buf = stage[warp];
+  // The table's loads and the first round's are in flight together.
+  uint32_t t_words[256 / THREADS];
+#pragma unroll
+  for (int i = 0; i < 256 / THREADS; ++i) t_words[i] = __ldg(table + i * THREADS + threadIdx.x);
+  uint32_t reg = 0;
+  for (int r0 = 0; r0 < piece_words; r0 += ROUND_WORDS) {
+    const int n = min(ROUND_WORDS, piece_words - r0);
+    if (live) {
+#pragma unroll
+      for (int t = 0; t < ROUND_WORDS; ++t) {
+        // Word q of the round is word j of piece pc: a warp's 32 loads
+        // cover two runs of 64 contiguous bytes.
+        const int q = t * 32 + k;
+        const int pc = q / ROUND_WORDS;
+        const int j = q % ROUND_WORDS;
+        if (j < n) {
+          const int64_t v = 4 * ((int64_t)pc * piece_words + r0 + j) - pad;
+          buf[pc * PIECE_STRIDE + j] = load_word<ALIGNED>(p, v);
+        }
+      }
+    }
+    if (r0 == 0) {
+#pragma unroll
+      for (int i = 0; i < 256 / THREADS; ++i) lut[i * THREADS + threadIdx.x] = t_words[i];
+      __syncthreads();
+    } else {
+      __syncwarp();
+    }
+    for (int j = 0; j < n; ++j) reg = step_word(lut, reg, buf[k * PIECE_STRIDE + j]);
+    __syncwarp();
+  }
+  if (!live) return;  // the whole warp leaves together
+#pragma unroll
+  for (int l = 0; l < LEVELS; ++l) {
+    const uint32_t right = __shfl_down_sync(0xFFFFFFFFu, reg, 1 << l);
+    // Four partial sums: a chain of 8 dependent XORs, not 32.
+    uint32_t part[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int b = 0; b < 32; ++b) part[b & 3] ^= ops.shift[l][b] & (0u - ((reg >> b) & 1u));
+    const uint32_t shifted = (part[0] ^ part[1]) ^ (part[2] ^ part[3]);
+    if ((k & ((2 << l) - 1)) == 0) reg = shifted ^ right;
+  }
+  if (k == 0) out[lane] = ~(reg ^ ops.init_shift);
+}
+
 }  // namespace
 
 // data (n_lanes, seg_len) uint8, 16-byte aligned; table (256,) uint32;
-// out (n_lanes,) uint32; all on the device and contiguous. Launches on
-// `stream` and returns cudaGetLastError().
+// out (n_lanes,) uint32; all on the device and contiguous. piece_words is
+// ceil(seg_len / 128), or 0 for one thread per lane; ops (host memory) holds
+// 5 x 32 operator rows then shift_seg_len(~0), as crc32.py builds them, and
+// is read only when piece_words > 0. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int crc32_launch(const void* data, const void* table, void* out, long long n_lanes,
-                            long long seg_len, void* stream) {
+                            long long seg_len, int piece_words, const void* ops,
+                            void* stream) {
   if (n_lanes > 0) {
-    const long long blocks = (n_lanes + THREADS - 1) / THREADS;
-    crc32_lanes_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(data), static_cast<const uint32_t*>(table),
-        static_cast<uint32_t*>(out), n_lanes, seg_len);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const uint8_t* in = static_cast<const uint8_t*>(data);
+    const uint32_t* lut = static_cast<const uint32_t*>(table);
+    uint32_t* dst = static_cast<uint32_t*>(out);
+    if (piece_words == 0) {
+      const long long blocks = (n_lanes + THREADS - 1) / THREADS;
+      crc32_lanes_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(in, lut, dst, n_lanes,
+                                                                          seg_len);
+    } else {
+      const CombineOps params = *static_cast<const CombineOps*>(ops);
+      const unsigned blocks = static_cast<unsigned>((n_lanes + WARPS - 1) / WARPS);
+      if (seg_len % 4 == 0) {
+        crc32_split_kernel<true><<<blocks, THREADS, 0, s>>>(in, lut, dst, n_lanes, seg_len,
+                                                           piece_words, params);
+      } else {
+        crc32_split_kernel<false><<<blocks, THREADS, 0, s>>>(in, lut, dst, n_lanes, seg_len,
+                                                            piece_words, params);
+      }
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

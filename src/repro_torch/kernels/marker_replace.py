@@ -57,10 +57,12 @@ def _check(syms, tables, tile_tables) -> None:
     if tables.dim() != 2 or tables.shape[1] != TABLE_SIZE or tables.shape[0] < 1:
         raise ValueError("tables must be (n_tables >= 1, %d), got %s"
                          % (TABLE_SIZE, tuple(tables.shape)))
-    if tuple(tile_tables.shape) != (syms.shape[0],):
+    if tile_tables is not None and tuple(tile_tables.shape) != (syms.shape[0],):
         raise ValueError("tile_tables must be (n_tiles,), got %s" % (tuple(tile_tables.shape),))
     for name, t, dtype in (("syms", syms, torch.uint16), ("tables", tables, torch.uint8),
                            ("tile_tables", tile_tables, torch.int32)):
+        if t is None:
+            continue
         if t.dtype != dtype:
             raise TypeError("%s must be %s, got %s" % (name, dtype, t.dtype))
         if t.device != syms.device:
@@ -68,9 +70,11 @@ def _check(syms, tables, tile_tables) -> None:
 
 
 def _launch(syms, tables, tile_tables) -> torch.Tensor:
+    """Launch the kernel; ``tile_tables`` None means every tile reads table 0
+    (the kernel then skips the table-id load)."""
     global launches
     for name, t in (("syms", syms), ("tables", tables), ("tile_tables", tile_tables)):
-        if not t.is_contiguous():
+        if t is not None and not t.is_contiguous():
             raise ValueError("%s must be contiguous" % name)
     if syms.data_ptr() % 16:
         raise ValueError("syms must be 16-byte aligned")
@@ -79,7 +83,8 @@ def _launch(syms, tables, tile_tables) -> torch.Tensor:
     out = torch.empty(syms.shape, dtype=torch.uint8, device=syms.device)
     with torch.cuda.device(syms.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(syms.data_ptr(), tables.data_ptr(), tile_tables.data_ptr(), out.data_ptr(),
+        rc = fn(syms.data_ptr(), tables.data_ptr(),
+                None if tile_tables is None else tile_tables.data_ptr(), out.data_ptr(),
                 syms.shape[0], tables.shape[0], stream)
     if rc != 0:
         raise RuntimeError("marker_replace kernel launch failed: cudaError %d" % rc)
@@ -106,5 +111,9 @@ def marker_replace_tiles_multi(
 def marker_replace_tiles(syms: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``out = table[syms]`` over (n_tiles, 8, 1024) uint16 tiles and one
     (TABLE_SIZE,) uint8 table: the kernel above with n_tables = 1."""
+    tables = table.reshape(1, -1)
+    _check(syms, tables, None)
+    if syms.is_cuda:
+        return _launch(syms, tables, None)
     tile_tables = torch.zeros(syms.shape[0], dtype=torch.int32, device=syms.device)
-    return marker_replace_tiles_multi(syms, table.reshape(1, -1), tile_tables)
+    return marker_replace_tiles_multi_plain(syms, tables, tile_tables)

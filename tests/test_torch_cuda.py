@@ -42,9 +42,11 @@ def rng(request):
     return np.random.default_rng(list(request.node.name.encode()))
 
 
-@pytest.mark.parametrize("n_tiles,n_tables", [(1, 1), (32, 8), (512, 1)])
+@pytest.mark.parametrize("n_tiles,n_tables", [(1, 1), (8, 1), (8, 8), (16, 1), (16, 8), (32, 8),
+                                              (200, 1), (200, 8), (512, 1), (1100, 8)])
 def test_marker_kernel_matches_plain(cuda, rng, n_tiles, n_tables):
-    """Symbols and table ids include out-of-range pad values."""
+    """Symbols and table ids include out-of-range pad values. 512 and 1100
+    tiles outgrow one wave of blocks, so each thread takes 4 steps."""
     tables = torch.from_numpy(rng.integers(0, 256, (n_tables, TABLE_SIZE), dtype=np.uint8)).to(cuda)
     syms = torch.from_numpy(
         rng.integers(0, 1 << 16, (n_tiles, 8, 1024), dtype=np.int64).astype(np.uint16)
@@ -59,15 +61,25 @@ def test_marker_kernel_matches_plain(cuda, rng, n_tiles, n_tables):
     assert torch.equal(out, tmr.marker_replace_tiles_multi_plain(syms, tables, tids))
 
 
-def test_marker_single_table_kernel(cuda, rng):
+@pytest.mark.parametrize("n_tiles", [4, 8, 16, 200])
+def test_marker_single_table_kernel(cuda, rng, n_tiles):
+    """The single-table form launches without tile ids; pad symbols give 0."""
     table = tref.make_replacement_table(rng.integers(0, 256, 32768, dtype=np.uint8).tobytes())
-    syms = torch.from_numpy(rng.integers(0, TABLE_SIZE, (4, 8, 1024), dtype=np.int64)
+    syms = torch.from_numpy(rng.integers(0, 1 << 16, (n_tiles, 8, 1024), dtype=np.int64)
                             .astype(np.uint16))
     out = tmr.marker_replace_tiles(syms.to(cuda), table.to(cuda)).cpu()
     assert torch.equal(out, tmr.marker_replace_tiles(syms, table))
 
 
-@pytest.mark.parametrize("batch,seg_len", [(1, 1), (1, 7), (8, 4096), (16, 64)])
+@pytest.mark.parametrize("batch,seg_len", [
+    (1, 1), (1, 7), (8, 4096), (16, 64),
+    # either side of the split threshold (tcrc.SPLIT_MIN_SEG_LEN = 128)
+    (1, 127), (1, 128), (16, 127), (16, 128),
+    # the main path's 2048, ragged and unaligned lanes, and the seg_len of
+    # ops.crc32_parallel over a 12.76 MB gzip
+    (1, 2048), (16, 2048), (1, 1000), (16, 1000), (1, 4097), (16, 4097),
+    (1, 12464), (16, 12464),
+])
 def test_crc_kernel_matches_plain_and_zlib(cuda, rng, batch, seg_len):
     host = rng.integers(0, 256, (batch, 8, 128, seg_len), dtype=np.uint8)
     data = torch.from_numpy(host).to(cuda)
@@ -79,8 +91,7 @@ def test_crc_kernel_matches_plain_and_zlib(cuda, rng, batch, seg_len):
     assert torch.equal(out, tcrc.crc32_segments_batched_plain(data, table))
     lanes = host.reshape(-1, seg_len)
     got = out.cpu().numpy().reshape(-1).astype(np.uint32)
-    for i in (0, lanes.shape[0] - 1):
-        assert int(got[i]) == zlib.crc32(lanes[i].tobytes())
+    assert got.tolist() == [zlib.crc32(lane.tobytes()) for lane in lanes]
 
 
 def test_crc_unbatched_kernel(cuda, rng):

@@ -184,3 +184,75 @@ def test_crc_wrapper_rejects_int32_bytes():
     with pytest.raises(TypeError):
         tcrc.crc32_segments_batched(torch.zeros((1, 8, 128, 4), dtype=torch.int32),
                                     tref.make_crc_table())
+
+
+# ---------------------------------------------------------------------------
+# crc32: the split kernel's host-side shift operators, held to zlib
+# ---------------------------------------------------------------------------
+
+SPLIT_SEG_LENS = [tcrc.SPLIT_MIN_SEG_LEN, tcrc.SPLIT_MIN_SEG_LEN + 1, 1000, 2048, 4096, 4097,
+                  12464]
+
+
+def _apply(rows, reg):
+    out = 0
+    for b in range(32):
+        if reg >> b & 1:
+            out ^= rows[b]
+    return out
+
+
+def _reg0(data, lut):
+    """The CRC register over ``data`` from 0, without init or xorout."""
+    reg = 0
+    for byte in data:
+        reg = (reg >> 8) ^ lut[(reg ^ byte) & 0xFF]
+    return reg
+
+
+def test_crc_split_threshold():
+    """Lanes shorter than the threshold are walked by one thread (no
+    operators); from it on, 32 pieces of whole words cover the lane."""
+    assert tcrc.piece_words(tcrc.SPLIT_MIN_SEG_LEN - 1) == 0
+    for seg_len in SPLIT_SEG_LENS:
+        words = tcrc.piece_words(seg_len)
+        assert 0 <= 4 * words * tcrc.PIECES - seg_len < 4 * tcrc.PIECES
+
+
+@pytest.mark.parametrize("seg_len", SPLIT_SEG_LENS)
+def test_crc_shift_operators_match_zlib(seg_len):
+    """Each level's operator, applied to crc(A) and XOR-ed with crc(B),
+    gives zlib's CRC of A + B, for B as long as that level's right half."""
+    rng = rng_for(10, seg_len)
+    ops = tcrc.combine_operators(seg_len)
+    assert len(ops) == tcrc.LEVELS * 32 + 1
+    piece_len = 4 * tcrc.piece_words(seg_len)
+    for level in range(tcrc.LEVELS):
+        rows = ops[32 * level : 32 * (level + 1)]
+        a = rng.integers(0, 256, int(rng.integers(1, 300)), dtype=np.uint8).tobytes()
+        b = rng.integers(0, 256, piece_len << level, dtype=np.uint8).tobytes()
+        assert _apply(rows, zlib.crc32(a)) ^ zlib.crc32(b) == zlib.crc32(a + b)
+    assert ops[-1] == _apply(tcrc.shift_operator(seg_len), 0xFFFFFFFF)
+
+
+@pytest.mark.parametrize("seg_len", SPLIT_SEG_LENS)
+def test_crc_split_tree_matches_zlib(seg_len):
+    """The split kernel's arithmetic on the host: a lane front-padded with
+    zeros to 32 equal pieces, each piece's register from 0, the pairwise
+    tree over 32 pieces with the level operators, then the init's share."""
+    rng = rng_for(11, seg_len)
+    lut = [int(x) & 0xFFFFFFFF for x in tref.make_crc_table().tolist()]
+    words = tcrc.piece_words(seg_len)
+    for _ in range(2):
+        lane = rng.integers(0, 256, seg_len, dtype=np.uint8).tobytes()
+        piece_len = 4 * words
+        virtual = bytes(tcrc.PIECES * piece_len - seg_len) + lane
+        regs = [_reg0(virtual[k * piece_len : (k + 1) * piece_len], lut)
+                for k in range(tcrc.PIECES)]
+        ops = tcrc.combine_operators(seg_len)
+        for level in range(tcrc.LEVELS):
+            rows = ops[32 * level : 32 * (level + 1)]
+            span = 1 << level
+            for k in range(0, tcrc.PIECES, 2 * span):
+                regs[k] = _apply(rows, regs[k]) ^ regs[k + span]
+        assert regs[0] ^ ops[-1] ^ 0xFFFFFFFF == zlib.crc32(lane)
