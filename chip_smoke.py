@@ -20,13 +20,15 @@ Phases, each fatal on failure:
      device's busy time;
   5. the ops path (repro_torch.kernels.ops): the precode kernel against its
      plain version, exact, at 1 block, a ragged count, an unaligned start,
-     a buffer end, the whole gzip of phase 4 and a Silesia-sized launch;
+     a buffer end, the densest survivors of steps 1-3 ((0, 0, 1) repeated),
+     the whole gzip of phase 4 and a Silesia-sized launch;
      then, with every count at 0, ops.precode_candidates over that gzip
      (equal as a set to the host finder's candidates, which are timed
      beside it) and over a gzip of the corpus's first MiB (containing every
      dynamic block start the host decoder finds), ops.marker_replace and
      ops.crc32_parallel against the host path and zlib; every kernel of
-     the ops path must have launched;
+     the ops path must have launched; last, the steps of
+     ops.precode_candidates over the gzip timed apart with CUDA events;
   6. each kernel at the shape its path launched it most, then one JSON
      line of kernel results and, last, the {"ok": true, ...} line.
 
@@ -267,6 +269,23 @@ def precode_case(data, start_bit: int, n: int, shape: str, launches: int = 20):
     return row
 
 
+def pattern_bytes(bits, nbits: int, device):
+    """``bits`` (0/1, LSB first) repeated over ``nbits`` bits, as uint8 on
+    ``device``."""
+    import numpy as np
+    import torch
+
+    stream = np.resize(np.array(bits, np.uint8), 8 * -(-nbits // 8))
+    return torch.from_numpy(np.packbits(stream, bitorder="little")).to(device)
+
+
+#: (0, 0, 1) repeated: every third offset passes steps 1-3, the most any
+#: stream allows (the next pass needs bit o + 2 to be 0), and none the Kraft
+#: step: the precode kernel's densest queue.
+DENSE_BITS = (0, 0, 1)
+DENSE_OFFSETS = 1 << 20
+
+
 def check_precode(gen, device, gz: bytes):
     import torch
 
@@ -279,6 +298,8 @@ def check_precode(gen, device, gz: bytes):
         precode_case(rand(660), 0, 5000, "ragged n"),
         precode_case(rand(300), 13, 2049, "unaligned start_bit"),
         precode_case(rand(-(-(5 + 100_000) // 8)), 5, 100_000, "buffer end"),
+        precode_case(pattern_bytes(DENSE_BITS, DENSE_OFFSETS + HALO, device), 0, DENSE_OFFSETS,
+                     "densest survivors: (0, 0, 1) repeated"),
     ]
     data = torch.frombuffer(bytearray(gz), dtype=torch.uint8).to(device)
     rows.append(precode_case(data, 0, 8 * len(gz) - HALO, "main path: gzip of phase 4"))
@@ -419,6 +440,50 @@ def main_path(seed: int, mib: int, workers: int):
 # phase 5: the ops path
 # ---------------------------------------------------------------------------
 
+PARTS = ("host_copy", "h2d", "kernel", "nonzero", "d2h", "host_offsets")
+
+
+def precode_candidates_parts(data: bytes, reps: int = 5) -> dict:
+    """``ops.precode_candidates(data)`` over the whole of ``data``, its steps
+    (src/repro_torch/kernels/ops.py:86-89) run one by one with a CUDA
+    event between each two: the host copy of the bytes it reads, their copy
+    to the card, the kernel's wrapper call and the kernel, the
+    ``torch.nonzero`` compaction (which waits for the kernel), the copy
+    of the offsets back, and the host's int64 offsets. The stream is idle
+    around the host steps, so their events time the host. Median ms of
+    each part over ``reps`` calls after one warm-up, and of their sum."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.precode_check import precode_check_packed
+
+    n = 8 * len(data) - HALO
+    need = -(-(n + HALO) // 8)
+    runs = []
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(PARTS) + 1)]
+        ev[0].record()
+        raw = np.frombuffer(data, np.uint8, count=need).copy()
+        ev[1].record()
+        dev = torch.from_numpy(raw).to("cuda")
+        ev[2].record()
+        mask = precode_check_packed(dev, 0, n)
+        ev[3].record()
+        hits = torch.nonzero(mask).reshape(-1)
+        ev[4].record()
+        host = hits.cpu()
+        ev[5].record()
+        offsets = host.numpy().astype(np.int64)
+        ev[6].record()
+        ev[6].synchronize()
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(PARTS))])
+        del raw, dev, mask, hits, host, offsets
+    runs = runs[1:]
+    out = {name: statistics.median(r[i] for r in runs) for i, name in enumerate(PARTS)}
+    out["sum"] = statistics.median(sum(r) for r in runs)
+    return out
+
+
 def ops_path(seed: int, corpus: bytes, gz: bytes):
     """The kernel-level entry points on the card, checked against the host.
 
@@ -479,6 +544,7 @@ def ops_path(seed: int, corpus: bytes, gz: bytes):
         "gzip_bytes": len(gz), "offsets": end, "candidates": len(host),
         "host_finder_s": host_s, "precode_candidates_s": cands_s,
         "precode_candidates_ms": median_ms(lambda: ops.precode_candidates(gz), 5),
+        "precode_candidates_parts_ms": precode_candidates_parts(gz),
         "head_gzip_bytes": len(head), "head_dynamic_blocks": len(dynamic),
         "launches": launches,
     }
@@ -549,6 +615,8 @@ def main() -> int:
         "launches %s" % (ops["host_finder_s"], ops["precode_candidates_s"],
                          ops["precode_candidates_ms"], ops["offsets"], ops["candidates"],
                          ops["head_dynamic_blocks"], json.dumps(ops["launches"])))
+    log("ops.precode_candidates parts, median ms (CUDA events): %s"
+        % json.dumps(ops["precode_candidates_parts_ms"]))
     at_path.append(next(r for r in precode_rows if r["shape"].startswith("main path")))
 
     sources = {

@@ -18,27 +18,37 @@
 // Here the input is the compressed bytes themselves, the output one uint8
 // per offset.
 //
-// Bound: the work itself is bound by bytes (1/8 B in and 1 B out per
-// offset): its least integer work, steps 1-3 bit-sliced over 32 offsets a
-// word and step 4 only for the offsets that pass them (about 1 in 9), takes
-// less time than the bytes (chip_smoke.py counts it on the run's data).
-// This kernel is bound by integer operations instead: it runs the whole
-// cascade for every offset, about 120 SASS instructions each, most of
-// them in the 19 precode lengths and the 64-bit shifts of the precode word.
+// Bound: bytes (1/8 B in and 1 B out per offset). The first version ran
+// the whole cascade for every offset, about 120 instructions each, and was
+// bound by its own instruction count at 16x the byte bound. This one does
+// the least work that chip_smoke.py counts for the bound:
+//   * steps 1-3 bit-sliced: a lane owns W words of 32 offsets; a word's
+//     bit planes P_k = header bit k at each of its offsets are funnel
+//     shifts of two stage words, and ~P0 & ~P1 & P2 & ~(P4 & P5 & P6 & P7)
+//     is the word of offsets that pass (about 1 in 9 on compressed data);
+//   * step 4 only for those survivors, compacted per warp so that all 32
+//     lanes work: a prefix sum of the lanes' popcounts places each survivor
+//     in a queue in shared memory, and the warp takes the queue 32 at a
+//     time. A survivor's precode lengths are masked to its HCLEN + 4 (two
+//     masks from a 16-entry table) and summed through a 64-entry table of
+//     the Kraft terms of two lengths at once: 10 lookups, one bank each,
+//     so no conflicts;
+//   * the result bits go to a per-word mask in shared memory, and each
+//     lane expands 16 of them to 16 bytes (a nibble to 4 bytes by one
+//     multiply and mask) for one 16-byte store: a warp writes 512
+//     contiguous bytes a store.
+// A block stages its bytes once, shifted by the start bit, with aligned
+// 4-byte loads (bounds-checked only in a block that touches either end of
+// the buffer); after that every phase is warp-local.
 //
-// Design (simple first version):
-//   * one block of 256 threads per 2048 offsets; each thread owns 8
-//     consecutive offsets and writes their mask bytes as one 8-byte store;
-//   * the block stages its bytes in shared memory with coalesced loads,
-//     already shifted by start_bit % 8, as 32-bit words: bit p of the stage
-//     is bit start + p of the stream, so every thread's window starts in an
-//     aligned word and __funnelshift_r by 0..31 builds it in registers;
-//   * the cascade is branch-free; the Kraft terms come from one byte
-//     permute of an 8-entry table (cl = 0 gives 0, so masking the precode
-//     to its HCLEN + 4 lengths drops the inactive ones).
-// A later version could evaluate steps 1-3 bit-sliced, 32 offsets per word
-// (a handful of logic operations for 32 offsets), and run the Kraft step
-// only for the offsets that pass them.
+// What holds it back now is step 4's integer work: on an NVIDIA H100 80GB
+// HBM3 (700.00 W power limit), the 12.76 MB gzip of chip_smoke.py's main
+// path takes about 0.060 ms against a 0.034 ms byte bound, and the same
+// kernel without its stores about 0.048 ms. The survivors' shifts, masks and table sums issue
+// on the ALU pipe (16 lanes a clock per SM quarter); what a warp pays once
+// per word (prefix sum, the divergent enqueue loop, a queue's last partial
+// round) is spread over W = 4 words a lane for large launches. Small
+// launches take W = 1, which spreads the same offsets over 4x the warps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,95 +56,188 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int PER_THREAD = 8;
-constexpr int BLOCK = THREADS * PER_THREAD;  // 2048 offsets
-// Thread t reads stage words t/4 .. t/4 + 3, so the stage holds 67 words
-// (2144 bits): the block's 2048 + 73 bits and the last thread's overrun.
-constexpr int STAGE_WORDS = (THREADS - 1) / 4 + 4;
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
 
-// Kraft term 128 >> cl for cl = 1..7 and 0 for cl = 0, as bytes 0..7 of the
-// pair (lo, hi) for __byte_perm.
-constexpr uint32_t KRAFT_LO = 0x10204000u;
-constexpr uint32_t KRAFT_HI = 0x01020408u;
+// Offsets a block takes with W words a lane.
+template <int W>
+__host__ __device__ constexpr int block_offsets() { return THREADS * 32 * W; }
 
-__device__ __forceinline__ uint32_t load_byte(const uint8_t* __restrict__ data, int64_t n_bytes,
+__host__ __device__ constexpr uint32_t kraft_term(uint32_t cl) { return cl ? 128u >> cl : 0u; }
+
+// The little-endian 32-bit word at data + i, bytes outside [0, n_bytes)
+// reading as zero; data + i is 4-byte aligned.
+__device__ __forceinline__ uint32_t load_word(const uint8_t* __restrict__ data, int64_t n_bytes,
                                               int64_t i) {
-  return (i >= 0 && i < n_bytes) ? static_cast<uint32_t>(__ldg(data + i)) : 0u;
-}
-
-// 1 if the 74 bits starting at bit 0 of (r0, r1, r2) pass steps 1-4.
-__device__ __forceinline__ uint32_t check(uint32_t r0, uint32_t r1, uint32_t r2) {
-  const bool head = (r0 & 7u) == 4u && ((r0 >> 3) & 31u) < 30u;  // (1) (2) (3)
-  const uint32_t n_bits = 3u * (((r0 >> 13) & 15u) + 4u);      // 12..57
-  // The precode lengths, bits 17..73, masked to the first HCLEN + 4.
-  uint64_t pre = (static_cast<uint64_t>(__funnelshift_r(r1, r2, 17)) << 32) |
-                 __funnelshift_r(r0, r1, 17);
-  pre &= (1ull << n_bits) - 1ull;
-  uint32_t kraft = 0;
+  if (i >= 0 && i + 4 <= n_bytes) return __ldg(reinterpret_cast<const uint32_t*>(data + i));
+  uint32_t w = 0;
 #pragma unroll
-  for (int k = 0; k < 19; ++k) {
-    const uint32_t cl = static_cast<uint32_t>(pre >> (3 * k)) & 7u;
-    kraft += __byte_perm(KRAFT_LO, KRAFT_HI, cl);
+  for (int k = 0; k < 4; ++k) {
+    if (i + k >= 0 && i + k < n_bytes) w |= static_cast<uint32_t>(__ldg(data + i + k)) << (8 * k);
   }
-  return (head && kraft == 128u) ? 1u : 0u;  // (4)
+  return w;
 }
 
+// Bits 0..3 of x as the bytes 0/1 of a word (bit i to bit 8 i: no carries).
+__device__ __forceinline__ uint32_t spread(uint32_t x) { return (x * 0x00204081u) & 0x01010101u; }
+
+template <int W>
 __global__ void __launch_bounds__(THREADS)
 precode_check_kernel(const uint8_t* __restrict__ data, int64_t n_bytes, int64_t start_bit,
-                     int64_t n_offsets, uint8_t* __restrict__ out) {
+                     int64_t n_offsets, uint8_t* __restrict__ out, bool out16) {
+  // Offset 32 i + j of the block reads bits up to 32 i + 31 + 73: stage
+  // words i .. i + 3.
+  constexpr int STAGE_WORDS = THREADS * W + 3;
+  // An offset that passes steps 1-3 has bits (0, 0, 1) at o, o + 1, o + 2,
+  // so the next one starts at o + 3 or later: a warp's 1024 W offsets hold
+  // at most ceil(1024 W / 3).
+  constexpr int QUEUE = (1024 * W + 2) / 3;
   __shared__ uint32_t stage[STAGE_WORDS];
-  const int64_t first = (int64_t)blockIdx.x * BLOCK;  // first offset of the block
+  __shared__ uint32_t result[THREADS * W];
+  __shared__ uint16_t queue[WARPS][QUEUE];
+  __shared__ uint2 masks[16];     // HCLEN -> masks of precode lengths 0..9 and 10..18
+  __shared__ uint8_t kraft2[64];  // two lengths (a | b << 3) -> their Kraft terms' sum
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * block_offsets<W>();
+
+  // Stage word i = stream bits bit0 + 32 i .. + 31, from the aligned words
+  // around it; neighbouring threads read neighbouring words.
   const int64_t bit0 = start_bit + first;
   const int64_t byte0 = bit0 >> 3;
-  const int shift = static_cast<int>(bit0 & 7);
-
-  // Stage word i = stream bits bit0 + 32 i .. + 31, from bytes byte0 + 4 i ..
-  // byte0 + 4 i + 4; neighbouring threads read neighbouring bytes.
-  for (int i = threadIdx.x; i < STAGE_WORDS; i += THREADS) {
-    const int64_t b = byte0 + 4 * i;
-    uint64_t w = 0;
-#pragma unroll
-    for (int j = 0; j < 5; ++j) w |= static_cast<uint64_t>(load_byte(data, n_bytes, b + j)) << (8 * j);
-    stage[i] = static_cast<uint32_t>(w >> shift);
-  }
-  __syncthreads();
-
-  const int t = threadIdx.x;
-  const int base = (t & 3) * 8;  // the thread's first offset within word t / 4
-  const uint32_t w0 = stage[t / 4], w1 = stage[t / 4 + 1];
-  const uint32_t w2 = stage[t / 4 + 2], w3 = stage[t / 4 + 3];
-  uint64_t bytes = 0;
-#pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int sh = base + j;  // 0..31
-    const uint32_t ok = check(__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
-                              __funnelshift_r(w2, w3, sh));
-    bytes |= static_cast<uint64_t>(ok) << (8 * j);
-  }
-
-  const int64_t o = first + t * PER_THREAD;
-  if (o + PER_THREAD <= n_offsets) {
-    *reinterpret_cast<uint64_t*>(out + o) = bytes;  // out is 8-byte aligned
+  const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(data) + byte0) & 3);
+  const int64_t w0 = byte0 - mis;
+  const int shift = 8 * mis + static_cast<int>(bit0 & 7);  // 0..31
+  if (w0 >= 0 && w0 + 4 * (STAGE_WORDS + 1) <= n_bytes) {
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(data + w0);
+    for (int i = t; i < STAGE_WORDS; i += THREADS) {
+      stage[i] = __funnelshift_r(__ldg(src + i), __ldg(src + i + 1), shift);
+    }
   } else {
-    for (int j = 0; j < PER_THREAD && o + j < n_offsets; ++j) {
-      out[o + j] = static_cast<uint8_t>(bytes >> (8 * j));
+    for (int i = t; i < STAGE_WORDS; i += THREADS) {
+      stage[i] = __funnelshift_r(load_word(data, n_bytes, w0 + 4 * i),
+                                 load_word(data, n_bytes, w0 + 4 * i + 4), shift);
     }
   }
+  if (t < 64) kraft2[t] = static_cast<uint8_t>(kraft_term(t & 7) + kraft_term(t >> 3));
+  if (t < 16) {
+    const int n = t + 4;  // precode lengths read
+    const int n_lo = n < 10 ? n : 10;
+    masks[t] = make_uint2((1u << (3 * n_lo)) - 1u, n > 10 ? (1u << (3 * (n - 10))) - 1u : 0u);
+  }
+#pragma unroll
+  for (int k = 0; k < W; ++k) result[W * t + k] = 0;
+  __syncthreads();
+
+  // The warp's words are 32 W .. 32 W + 32 W - 1 of the block; the lane's
+  // are W lane .. W lane + W - 1 of those.
+  const uint32_t* st = stage + 32 * W * warp;
+  uint32_t* res = result + 32 * W * warp;
+  const int64_t warp_first = first + 1024 * W * warp;
+
+  // Steps 1-3, bit-sliced, for the lane's W words.
+  uint32_t pass[W];
+  int count = 0;
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int wi = W * lane + k;
+    const int64_t o = warp_first + 32 * wi;
+    const uint32_t a = st[wi], b = st[wi + 1];
+    const uint32_t p1 = __funnelshift_r(a, b, 1), p2 = __funnelshift_r(a, b, 2);
+    const uint32_t hlit_top = __funnelshift_r(a, b, 4) & __funnelshift_r(a, b, 5) &
+                              __funnelshift_r(a, b, 6) & __funnelshift_r(a, b, 7);
+    uint32_t p = ~a & ~p1 & p2 & ~hlit_top;  // (1) (2) (3)
+    if (o + 32 > n_offsets) p = o >= n_offsets ? 0u : p & ((1u << static_cast<int>(n_offsets - o)) - 1u);
+    pass[k] = p;
+    count += __popc(p);
+  }
+
+  // Queue the warp's survivors: entry = word << 5 | bit, words in order.
+  int incl = count;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const int total = __shfl_sync(FULL, incl, 31);
+  uint16_t* q = queue[warp];
+  int pos = incl - count;
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    for (uint32_t m = pass[k]; m; m &= m - 1) {
+      q[pos++] = static_cast<uint16_t>((W * lane + k) << 5 | (__ffs(m) - 1));
+    }
+  }
+  __syncwarp();
+
+  // Step 4, one queued offset a lane.
+  for (int r = lane; r < total; r += 32) {
+    const int e = q[r];
+    const int w = e >> 5, j = e & 31;
+    const uint32_t s0 = st[w], s1 = st[w + 1], s2 = st[w + 2], s3 = st[w + 3];
+    const uint32_t r0 = __funnelshift_r(s0, s1, j);  // window bits 0..31
+    const uint32_t r1 = __funnelshift_r(s1, s2, j);  // 32..63
+    const uint32_t r2 = __funnelshift_r(s2, s3, j);  // 64..95
+    const uint2 m = masks[(r0 >> 13) & 15u];
+    const uint32_t lo = __funnelshift_r(r0, r1, 17) & m.x;  // lengths 0..9 at bits 3k
+    const uint32_t hi = __funnelshift_r(r1, r2, 15) & m.y;  // lengths 10..18
+    const uint32_t kraft = kraft2[lo & 63u] + kraft2[(lo >> 6) & 63u] + kraft2[(lo >> 12) & 63u] +
+                           kraft2[(lo >> 18) & 63u] + kraft2[lo >> 24] + kraft2[hi & 63u] +
+                           kraft2[(hi >> 6) & 63u] + kraft2[(hi >> 12) & 63u] +
+                           kraft2[(hi >> 18) & 63u] + kraft2[hi >> 24];
+    if (kraft == 128u) atomicOr(&res[w], 1u << j);  // (4)
+  }
+  __syncwarp();
+
+  // The warp's 1024 W mask bytes, 16 a lane per store.
+#pragma unroll
+  for (int h = 0; h < 2 * W; ++h) {
+    const int local = 512 * h + 16 * lane;
+    const uint32_t bits = res[local >> 5] >> (local & 16);
+    const uint4 v = make_uint4(spread(bits & 15u), spread((bits >> 4) & 15u),
+                               spread((bits >> 8) & 15u), spread((bits >> 12) & 15u));
+    const int64_t at = warp_first + local;
+    if (at + 16 <= n_offsets) {
+      if (out16) {
+        *reinterpret_cast<uint4*>(out + at) = v;
+      } else {  // out is 8-byte aligned
+        reinterpret_cast<uint2*>(out + at)[0] = make_uint2(v.x, v.y);
+        reinterpret_cast<uint2*>(out + at)[1] = make_uint2(v.z, v.w);
+      }
+    } else {
+      for (int k = 0; at + k < n_offsets; ++k) out[at + k] = static_cast<uint8_t>((bits >> k) & 1u);
+    }
+  }
+}
+
+template <int W>
+void launch(const void* data, long long n_bytes, long long start_bit, long long n_offsets,
+            void* out, cudaStream_t stream) {
+  const long long blocks = (n_offsets + block_offsets<W>() - 1) / block_offsets<W>();
+  const bool out16 = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  precode_check_kernel<W><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+      static_cast<const uint8_t*>(data), n_bytes, start_bit, n_offsets,
+      static_cast<uint8_t*>(out), out16);
 }
 
 }  // namespace
 
 // data (n_bytes,) uint8 on the device; out (n_offsets,) uint8, 8-byte
 // aligned. Offset i of out is bit start_bit + i of data, LSB first. Launches
-// on `stream` and returns cudaGetLastError().
+// on `stream` and returns cudaGetLastError(). Four words a lane once the
+// launch gives every SM at least two such blocks, one word a lane below.
 extern "C" int precode_check_launch(const void* data, long long n_bytes, long long start_bit,
                                     long long n_offsets, void* out, void* stream) {
   if (n_offsets > 0) {
-    const long long blocks = (n_offsets + BLOCK - 1) / BLOCK;
-    precode_check_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(data), n_bytes, start_bit, n_offsets,
-        static_cast<uint8_t*>(out));
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (n_offsets >= 2LL * sms * block_offsets<4>()) {
+      launch<4>(data, n_bytes, start_bit, n_offsets, out, s);
+    } else {
+      launch<1>(data, n_bytes, start_bit, n_offsets, out, s);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -159,6 +159,62 @@ def test_precode_kernel_matches_plain(cuda, rng, start_bit, n, tight):
     assert torch.equal(out, tpc.precode_check_packed_plain(data, start_bit, n))
 
 
+#: Streams at the extremes of the offsets passing steps 1-3: none (zeros,
+#: ones), every third ((0, 0, 1) repeated) and a valid 29-bit header
+#: repeated (final 0, type (0, 1), HLIT = HDIST = HCLEN = 0, four precode
+#: lengths of 2).
+STREAMS = {"zeros": [0], "ones": [1], "001": [0, 0, 1],
+           "header29": [0, 0, 1] + [0] * 14 + [0, 1, 0] * 4}
+
+
+def precode_size(size: str) -> int:
+    """An odd offset count on either side of the kernel's switch to four
+    words a lane (two such blocks of 32768 offsets per SM)."""
+    if size == "small":
+        return 100_003
+    return 2 * torch.cuda.get_device_properties(0).multi_processor_count * 32768 + 1013
+
+
+@pytest.mark.parametrize("size", ["small", "large"])
+@pytest.mark.parametrize("view", [False, True], ids=["aligned", "odd_address"])
+@pytest.mark.parametrize("kind", list(STREAMS))
+def test_precode_kernel_extreme_streams(cuda, kind, view, size):
+    """Across many blocks, at an unaligned start, with a buffer that ends at
+    the last offset; ``odd_address`` passes a view one byte into its
+    allocation, so the staging loads start at a misaligned address."""
+    start_bit, n = 13, precode_size(size)
+    nbits = start_bit + n
+    bits = np.resize(np.array(STREAMS[kind], np.uint8), 8 * -(-nbits // 8) + 8 * view)
+    data = torch.from_numpy(np.packbits(bits, bitorder="little")).to(cuda)
+    if view:
+        data = data[1:]
+    out = tpc.precode_check_packed(data, start_bit, n)
+    plain = tpc.precode_check_packed_plain(data, start_bit, n)
+    assert torch.equal(out, plain)
+    if kind == "header29":
+        assert int(out.sum()) >= n // 29 - 3
+
+
+@pytest.mark.parametrize("size", ["small", "large"])
+def test_precode_kernel_8_byte_aligned_out(cuda, rng, size):
+    """The C entry takes an output that is 8- but not 16-byte aligned."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.entry("precode_check", "precode_check_launch",
+                      [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_void_p])
+    n = precode_size(size)
+    data = torch.from_numpy(rng.integers(0, 256, n // 8 + 16, dtype=np.uint8)).to(cuda)
+    buf = torch.full((n + 8,), 7, dtype=torch.uint8, device=cuda)
+    rc = fn(data.data_ptr(), data.numel(), 3, n, buf[8:].data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    assert torch.equal(buf[8:], tpc.precode_check_packed_plain(data, 3, n))
+    assert bool((buf[:8] == 7).all())
+
+
 def test_precode_blocks_kernel(cuda, rng):
     planes = torch.from_numpy(rng.integers(0, 2, (5, tpc.BLOCK), dtype=np.uint8))
     planes[-1] = 0

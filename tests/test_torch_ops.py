@@ -118,6 +118,64 @@ def test_plain_version_batches_agree(monkeypatch):
     assert torch.equal(tpc.precode_check_packed_plain(data, 5, 20_000), whole)
 
 
+#: A header that passes steps 1-4: final 0, type (0, 1), HLIT = HDIST =
+#: HCLEN = 0, then four precode lengths of 2 (LSB first): 29 bits.
+VALID_HEADER = [0, 0, 1] + [0] * 14 + [0, 1, 0] * 4
+#: The kernel's extremes of the share of offsets passing steps 1-3: none
+#: (zeros, ones), the most possible (every third offset: (0, 0, 1)
+#: repeated, none completing the Kraft step) and a valid header every 29
+#: bits.
+STREAMS = {"zeros": [0], "ones": [1], "001": [0, 0, 1], "header29": VALID_HEADER}
+
+
+def stream_bits(kind: str, nbits: int) -> np.ndarray:
+    return np.resize(np.array(STREAMS[kind], np.uint8), nbits)
+
+
+def steps_1_3(bits: np.ndarray, n: int) -> np.ndarray:
+    """Offsets < n whose final bit, type bits and HLIT pass, on 0/1 bits."""
+    hlit = sum(bits[3 + j : 3 + j + n].astype(np.int32) << j for j in range(5))
+    return (bits[:n] == 0) & (bits[1 : 1 + n] == 0) & (bits[2 : 2 + n] == 1) & (hlit < 30)
+
+
+@pytest.mark.parametrize("tight", [False, True], ids=["roomy", "buffer_end"])
+@pytest.mark.parametrize("kind", list(STREAMS))
+def test_precode_extreme_streams_match_pallas_and_ref(kind, tight):
+    """The streams at the extremes of survivors per word, through the plain
+    version, the Pallas kernel (interpret mode) and the jnp oracle. With
+    ``tight`` the start is unaligned and the buffer ends at the last offset,
+    so the last windows read zeros."""
+    start_bit, n_blocks = (13, 2) if tight else (0, 2)
+    n = n_blocks * BLOCK - (100 if tight else 0)
+    bits = stream_bits(kind, start_bit + n + (0 if tight else BLOCK))
+    data = np.packbits(bits, bitorder="little")
+    ours = tpc.precode_check_packed_plain(torch.from_numpy(data), start_bit, n).numpy()
+    assert ours.dtype == np.uint8 and ours.shape == (n,)
+    # The offsets' view of the stream, with the zeros past the buffer.
+    seen = np.zeros((n_blocks + 1) * BLOCK, np.uint8)
+    tail = np.unpackbits(data, bitorder="little")[start_bit:][: seen.shape[0]]
+    seen[: tail.shape[0]] = tail
+    pallas = np.asarray(pallas_precode_blocks(
+        jnp.asarray(seen.reshape(n_blocks + 1, BLOCK).astype(np.int32)), interpret=True))
+    np.testing.assert_array_equal(ours, pallas.reshape(-1)[:n])
+    ref = np.asarray(precode_check_ref(jnp.asarray(seen[: n + HALO].astype(np.int32))))
+    np.testing.assert_array_equal(ours, ref)
+
+    inside = n - HALO if tight else n  # offsets whose windows lie in the buffer
+    survivors = steps_1_3(seen, inside)
+    if kind in ("zeros", "ones"):
+        assert not survivors.any() and not ours.any()
+    elif kind == "001":
+        # A third survive steps 1-3: every offset where the pattern starts.
+        np.testing.assert_array_equal(np.flatnonzero(survivors),
+                                      np.arange((-start_bit) % 3, inside, 3))
+        assert not ours[:inside].any()
+    else:
+        assert 0.15 < survivors.mean() < 0.2
+        np.testing.assert_array_equal(np.flatnonzero(ours[:inside]),
+                                      np.arange((-start_bit) % 29, inside, 29))
+
+
 # ---------------------------------------------------------------------------
 # ops.precode_candidates
 # ---------------------------------------------------------------------------

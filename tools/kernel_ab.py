@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The stage-2 kernels of two checkouts, timed in turns on one card.
+"""The kernels of two checkouts, timed in turns on one card.
 
     python3 tools/kernel_ab.py --base DIR [--turns 2] [--out results.json]
 
@@ -8,9 +8,12 @@ unpacked with ``git archive`` into the git-ignored ``build/``). Each turn
 runs the base and then this checkout, or this checkout and then the base
 (base, this, this, base, ...), each in a process of its own that imports
 that tree's ``repro_torch``, builds its kernels and runs this checkout's
-``chip_smoke.marker_case`` and ``chip_smoke.crc_case`` at the same shapes
-on the same seeded inputs. Every case is checked exact against the plain
-version, as in ``chip_smoke.py``. Prints one JSON row per case and run,
+``chip_smoke.marker_case``, ``chip_smoke.crc_case`` and
+``chip_smoke.precode_case`` at the same shapes on the same seeded inputs:
+the precheck over the gzip -6 of ``chip_smoke.base64_corpus(seed, 16
+MiB)`` (``chip_smoke.py``'s main-path shape), over its densest stream and
+over Silesia-sized random bytes. Every case is checked exact against the
+plain version, as in ``chip_smoke.py``. Prints one JSON row per case and run,
 then a table of the kernel times side by side; the card's name and power
 limit head the output. Needs one CUDA card.
 """
@@ -18,6 +21,7 @@ limit head the output. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import gzip
 import json
 import statistics
 import subprocess
@@ -45,7 +49,7 @@ def worker(tree: Path, seed: int) -> None:
 
     if not Path(repro_torch.__file__).resolve().is_relative_to(tree.resolve()):
         raise SystemExit("imported %s, not the tree's repro_torch" % repro_torch.__file__)
-    _build.build(("marker_replace", "crc32"))
+    _build.build(("marker_replace", "crc32", "precode_check"))
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     gen = torch.Generator(device=device)
@@ -56,6 +60,19 @@ def worker(tree: Path, seed: int) -> None:
                      case="marker %dx8" % SILESIA_TILES))
     rows += [dict(chip_smoke.crc_case(b, s, gen, device), case="crc B=%d seg_len=%d" % (b, s))
              for b, s in CRC_SHAPES]
+    gz = gzip.compress(chip_smoke.base64_corpus(seed, 16 << 20), 6, mtime=0)
+    data = torch.frombuffer(bytearray(gz), dtype=torch.uint8).to(device)
+    rows.append(dict(chip_smoke.precode_case(data, 0, 8 * len(gz) - chip_smoke.HALO, "gzip"),
+                     case="precode gzip %d B" % len(gz)))
+    dense = chip_smoke.pattern_bytes(chip_smoke.DENSE_BITS,
+                                     chip_smoke.DENSE_OFFSETS + chip_smoke.HALO, device)
+    rows.append(dict(chip_smoke.precode_case(dense, 0, chip_smoke.DENSE_OFFSETS, "dense"),
+                     case="precode (0,0,1) x %d" % chip_smoke.DENSE_OFFSETS))
+    n = chip_smoke.SILESIA_GZ_BYTES
+    rand = torch.randint(0, 256, (n,), generator=gen, device=device,
+                         dtype=torch.int32).to(torch.uint8)
+    rows.append(dict(chip_smoke.precode_case(rand, 0, 8 * n - chip_smoke.HALO, "Silesia-sized",
+                                             launches=5), case="precode %d random B" % n))
     print(json.dumps({"launch_floor_ms": chip_smoke.launch_floor_ms(), "rows": rows}))
 
 
@@ -103,12 +120,12 @@ def main() -> int:
                 print(json.dumps(dict(row, side=side, turn=turn)), flush=True)
 
     cases = [row["case"] for row in runs[0]["rows"]]
-    print("%-26s %12s %12s %8s %12s" % ("case", "base ms", "change ms", "ratio", "library ms"))
+    print("%-30s %12s %12s %8s %12s" % ("case", "base ms", "change ms", "ratio", "library ms"))
     for i, case in enumerate(cases):
         ms = {side: statistics.median(r["rows"][i]["kernel_ms"] for r in runs if r["side"] == side)
               for side in trees}
         lib = [r["rows"][i]["library_ms"] for r in runs if r["side"] == "change"]
-        print("%-26s %12.6f %12.6f %8.3f %12s" % (
+        print("%-30s %12.6f %12.6f %8.3f %12s" % (
             case, ms["base"], ms["change"], ms["change"] / ms["base"],
             "%.6f" % statistics.median(lib) if lib[0] is not None else "none"))
     if args.out:
