@@ -29,8 +29,22 @@ Phases, each fatal on failure:
      ops.crc32_parallel against the host path and zlib; every kernel of
      the ops path must have launched; last, the steps of
      ops.precode_candidates over the gzip timed apart with CUDA events;
-  6. each kernel at the shape its path launched it most, then one JSON
-     line of kernel results and, last, the {"ok": true, ...} line.
+  6. each kernel at the shape its path launched it most;
+  7. the service path (repro_torch.service): two base64 corpora made from
+     --seed, 8 MiB each, as gzip -6, one opened from a local file
+     and one as an http:// URL from a loopback range server (so
+     RemoteFileReader is on the path), served by a GatewayServer on
+     loopback whose ArchiveServer owns a CUDA engine. Two client threads,
+     two tenants, open both archives and read each whole (the first pass,
+     under torch.profiler), then 64 random ranges of 4 KiB to 1 MiB; every
+     body is checked byte for byte. Then every index is persisted and a
+     new gateway over the same IndexStore serves the ranges again with no
+     first pass. Fatal: any byte differs, the engine fell back or erred, a
+     kernel did not launch in the phase, the engine in metrics() is not
+     the server's own, the process-wide shared_engine was reached, or
+     /metrics lacks the engine's counters;
+  then one JSON line of kernel results and, last, the {"ok": true, ...}
+  line.
 
 Without a CUDA device, or without the rest of the repository beside it, the
 script exits non-zero before printing any result.
@@ -550,6 +564,269 @@ def ops_path(seed: int, corpus: bytes, gz: bytes):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the service path
+# ---------------------------------------------------------------------------
+
+SERVICE_MIB = 8  # each of the two archives; 2 tenants x 2 first passes at ~0.5 MB/s in all
+TENANTS = 2
+RANGES_PER_ARCHIVE = 64
+RANGE_SIZES = (4 << 10, 32 << 10, 256 << 10, 1 << 20)
+ENGINE_SERIES = ("repro_engine_batches", "repro_engine_dispatches",
+                 "repro_engine_requests_replace", "repro_engine_requests_crc",
+                 "repro_engine_fallbacks_replace", "repro_engine_fallbacks_crc",
+                 "repro_engine_errors")
+
+
+def http_call(base: str, method: str, path: str, headers=None, body=None, timeout=900.0):
+    """One request on a fresh loopback connection: (status, headers, body)."""
+    import http.client
+    import urllib.parse
+
+    url = urllib.parse.urlsplit(base)
+    conn = http.client.HTTPConnection(url.hostname, url.port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
+    finally:
+        conn.close()
+
+
+def run_tenants(fn, tenants: int, timeout: float = 900.0):
+    """``fn(t)`` in one thread per tenant; re-raises the first failure."""
+    import threading
+
+    out, errors = [None] * tenants, []
+
+    def body(t):
+        try:
+            out[t] = fn(t)
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=body, args=(t,), name="tenant-%d" % t)
+               for t in range(tenants)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a tenant thread did not finish in %.0f s" % timeout)
+    if errors:
+        raise errors[0]
+    return out
+
+
+def quantiles_ms(samples):
+    import numpy as np
+
+    a = np.asarray(samples) * 1e3
+    return {"n": len(samples), "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99))}
+
+
+def check_server_engine(gw, label: str) -> dict:
+    """The engine behind ``gw`` is its server's own CUDA engine, owned by
+    it, resolved every reader's stage 2, and is the one in ``metrics()``;
+    it neither fell back nor erred. Returns its stats."""
+    srv = gw.server
+    engine = srv.device_engine
+    if not srv._owns_engine or engine.device.type != "cuda":  # noqa: SLF001
+        raise AssertionError("%s: the server does not own a CUDA engine" % label)
+    for handle, entry in list(srv._entries.items()):  # noqa: SLF001
+        reader = entry.reader
+        if reader is not None and reader._fetcher.resolver is not engine:  # noqa: SLF001
+            raise AssertionError("%s: reader %s resolves through another engine" % (label, handle))
+    stats = engine.stats()
+    snap = json.loads(http_call(gw.url, "GET", "/v1/metrics")[2])["engine"]
+    for key in ("requests", "batches", "dispatches", "crc_bytes", "tiles_dispatched"):
+        if snap[key] != stats[key]:
+            raise AssertionError("%s: metrics()['engine'][%r] = %s, the server's engine %s"
+                                 % (label, key, snap[key], stats[key]))
+    if stats["errors"] or stats["fallbacks"] != {"replace": 0, "crc": 0}:
+        raise AssertionError("%s: engine errors %s, fallbacks %s"
+                             % (label, stats["errors"], stats["fallbacks"]))
+    return stats
+
+
+def check_prometheus(gw, label: str) -> dict:
+    status, headers, body = http_call(gw.url, "GET", "/metrics")
+    if status != 200 or not headers.get("content-type", "").startswith("text/plain"):
+        raise AssertionError("%s: /metrics answered %s %s" % (label, status, headers))
+    values = {}
+    for line in body.decode().splitlines():
+        name, _, value = line.partition(" ")
+        if name in ENGINE_SERIES:
+            values[name] = float(value)
+    missing = [n for n in ENGINE_SERIES if n not in values]
+    if missing:
+        raise AssertionError("%s: /metrics lacks the engine's %s" % (label, missing))
+    return values
+
+
+def service_path(seed: int, card: str):
+    """Phase 7: the archive service on the card, driven over HTTP."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _range_server import RangeHTTPServer
+
+    from repro_torch.kernels import engine as tengine
+    from repro_torch.service import IndexStore
+    from repro_torch.service.gateway import GatewayServer, TenantAdmission
+
+    corpora = [base64_corpus(seed + 10 + i, SERVICE_MIB << 20) for i in range(2)]
+    blobs = [gzip.compress(c, 6, mtime=0) for c in corpora]
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="service-", dir=ROOT / "build"))
+    local = work / "corpus-0.gz"
+    local.write_bytes(blobs[0])
+    tokens = {"tok-%d" % t: "tenant-%d" % t for t in range(TENANTS)}
+
+    def start_gateway():
+        return GatewayServer(
+            device="cuda", max_workers=8, cache_budget_bytes=256 << 20, chunk_size=1 << 20,
+            reader_parallelization=4, stream_span=1 << 20,
+            admission=TenantAdmission(tokens=tokens, default_tenant=None),
+            index_store=IndexStore(str(work / "index")),
+        ).start()
+
+    rng = np.random.default_rng(seed + 3)
+    per_size = RANGES_PER_ARCHIVE // len(RANGE_SIZES)
+    plans = [[[(int(rng.integers(0, len(c) - size + 1)), int(size))
+               for size in rng.permutation(np.repeat(RANGE_SIZES, per_size))]
+              for c in corpora] for _ in range(TENANTS)]
+
+    # The process-wide engine must stay out of the phase: count calls to it
+    # and keep what it held before.
+    shared_before = dict(tengine._shared)  # noqa: SLF001
+    shared_calls = []
+    real_shared = tengine.shared_engine
+    tengine.shared_engine = lambda dev="cuda": shared_calls.append(dev) or real_shared(dev)
+    remote = RangeHTTPServer(blobs[1])
+    gateways = []
+    try:
+        sources = [str(local), remote.url]
+
+        def open_all(gw, t):
+            auth = {"Authorization": "Bearer tok-%d" % t}
+            handles = []
+            for src in sources:
+                status, _, body = http_call(gw.url, "POST", "/v1/archives", dict(
+                    auth, **{"Content-Type": "application/json"}), json.dumps({"source": src}))
+                if status != 201:
+                    raise AssertionError("open %s: %s %s" % (src, status, body[:200]))
+                handles.append(json.loads(body)["handle"])
+            return auth, handles
+
+        def get(gw, auth, handle, off, size, corpus):
+            t0 = time.perf_counter()
+            status, headers, body = http_call(
+                gw.url, "GET", "/v1/archives/%s/bytes" % handle,
+                dict(auth, Range="bytes=%d-%d" % (off, off + size - 1)))
+            secs = time.perf_counter() - t0
+            if status != 206 or body != corpus[off : off + size]:
+                raise AssertionError("GET %s bytes=%d+%d: status %s, %d bytes differ from "
+                                     "the corpus" % (handle, off, size, status, len(body)))
+            return secs
+
+        def ranges(gw, opened, t):
+            auth, handles = opened[t]
+            lat = {size: [] for size in RANGE_SIZES}
+            for a, handle in enumerate(handles):
+                for off, size in plans[t][a]:
+                    lat[size].append(get(gw, auth, handle, off, size, corpora[a]))
+            return lat
+
+        # Server 1: cold opens, the first pass over HTTP, then warm ranges.
+        gw = start_gateway()
+        gateways.append(gw)
+        opened = [open_all(gw, t) for t in range(TENANTS)]
+
+        def first_pass(t):
+            auth, handles = opened[t]
+            order = range(len(handles)) if t % 2 == 0 else reversed(range(len(handles)))
+            return {a: get(gw, auth, handles[a], 0, len(corpora[a]), corpora[a]) for a in order}
+
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            first = run_tenants(first_pass, TENANTS)
+        first_s = time.perf_counter() - t0
+        device_ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                             for e in prof.key_averages() if e.self_device_time_total > 0),
+                            key=lambda e: -e[1])
+        busy_ms = sum(e[1] for e in device_ops)
+        warm = run_tenants(lambda t: ranges(gw, opened, t), TENANTS)
+        stats1 = check_server_engine(gw, "server 1")
+        prom1 = check_prometheus(gw, "server 1")
+        fetcher1 = gw.server.metrics()["fleet"]["fetcher"]
+        shapes = {"%s:%d:%d" % k: v for k, v in gw.server.device_engine.dispatch_shapes().items()}
+        keys = []
+        for t in range(TENANTS):
+            for handle in opened[t][1]:
+                key = gw.server.persist_index(handle)
+                if key is None:
+                    raise AssertionError("persist_index(%s): no finalized index" % handle)
+                keys.append(key)
+        engine1 = gw.server.device_engine
+        gw.close()
+        if not engine1.stats()["closed"]:
+            raise AssertionError("server 1's engine outlived its server")
+
+        # Server 2: the same IndexStore, so every open is warm; no first pass.
+        gw = start_gateway()
+        gateways.append(gw)
+        opened = [open_all(gw, t) for t in range(TENANTS)]
+        cold = run_tenants(lambda t: ranges(gw, opened, t), TENANTS)
+        stats2 = check_server_engine(gw, "server 2")
+        prom2 = check_prometheus(gw, "server 2")
+        metrics2 = gw.server.metrics()
+        not_warm = [h for h, f in metrics2["per_file"].items() if not f["index_was_warm"]]
+        nominal = metrics2["fleet"]["fetcher"]["nominal_tasks"]
+        if not_warm or nominal:
+            raise AssertionError("server 2 ran a first pass: handles %s not warm, %d nominal "
+                                 "tasks" % (not_warm, nominal))
+        if gw.server.device_engine is engine1:
+            raise AssertionError("server 2 reused server 1's engine")
+    finally:
+        tengine.shared_engine = real_shared
+        for g in gateways:
+            g.close()
+        remote.close()
+        shutil.rmtree(work, ignore_errors=True)
+    shared_after = dict(tengine._shared)  # noqa: SLF001
+    if shared_calls or shared_after.keys() != shared_before.keys() or any(
+            shared_after[k] is not v for k, v in shared_before.items()):
+        raise AssertionError("the process-wide shared_engine was reached in the phase: calls %s"
+                             % shared_calls)
+
+    mbps = {}
+    for t in range(TENANTS):
+        for a, secs in first[t].items():
+            mbps["tenant-%d/%s" % (t, ("local", "http")[a])] = len(corpora[a]) / secs / 1e6
+    latency = {}
+    for label, runs in (("warm", warm), ("cold", cold)):
+        for size in RANGE_SIZES:
+            latency["%s/%d" % (label, size)] = quantiles_ms(
+                [x for run in runs for x in run[size]])
+    return {
+        "card": card, "tenants": TENANTS, "corpus_bytes": [len(c) for c in corpora],
+        "gzip_bytes": [len(b) for b in blobs], "ranges_per_archive": RANGES_PER_ARCHIVE,
+        "first_pass_s": first_s, "first_pass_MBps": mbps,
+        "first_pass_device_busy_ms": busy_ms,
+        "first_pass_device_idle_share": 1 - busy_ms / (first_s * 1e3) if busy_ms else None,
+        "first_pass_device_ops": [{"name": n, "ms": ms, "count": c} for n, ms, c in device_ops],
+        "pread_latency": latency, "engine": stats1, "engine_cold_server": stats2,
+        "shapes": shapes, "fetcher": fetcher1, "persisted": len(keys),
+        "prometheus": {"server 1": prom1, "server 2": prom2},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
@@ -619,6 +896,33 @@ def main() -> int:
         % json.dumps(ops["precode_candidates_parts_ms"]))
     at_path.append(next(r for r in precode_rows if r["shape"].startswith("main path")))
 
+    from repro_torch.kernels import crc32 as kc
+    from repro_torch.kernels import marker_replace as mr
+
+    mr.reset_launches()
+    kc.reset_launches()
+    service = service_path(args.seed, card)
+    service["launches"] = {"marker_replace": mr.launches, "crc32": kc.launches}
+    if min(service["launches"].values()) < 1:
+        raise AssertionError("a kernel never launched on the service path: %s"
+                             % service["launches"])
+    log("service path [%s]: %d tenants over HTTP, 2 archives of %d bytes (gzip %s), first "
+        "pass %.3f s, MB/s %s" % (card, service["tenants"], service["corpus_bytes"][0],
+                                   service["gzip_bytes"], service["first_pass_s"],
+                                   json.dumps(service["first_pass_MBps"])))
+    log("service path [%s]: first passes device busy %.3f ms (idle share %s); device ops %s"
+        % (card, service["first_pass_device_busy_ms"], service["first_pass_device_idle_share"],
+           json.dumps(service["first_pass_device_ops"])))
+    log("service path [%s]: pread latency by range size, warm (server 1, after its first "
+        "pass) and cold (server 2, index from the store): %s"
+        % (card, json.dumps(service["pread_latency"])))
+    log("service path [%s]: engine batches %d, dispatches %d, requests %s, fallbacks %s, "
+        "errors %d; launches %s; shapes %s; server 2 engine requests %s"
+        % (card, service["engine"]["batches"], service["engine"]["dispatches"],
+           json.dumps(service["engine"]["requests"]), json.dumps(service["engine"]["fallbacks"]),
+           service["engine"]["errors"], json.dumps(service["launches"]),
+           json.dumps(service["shapes"]), json.dumps(service["engine_cold_server"]["requests"])))
+
     sources = {
         "marker_replace": ("src/repro_torch/kernels/csrc/marker_replace.cu",
                            "src/repro/kernels/marker_replace.py:101"),
@@ -645,7 +949,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps({
             "card": card, "build_s": build_s, "launch_floor_ms": floor_ms, "kernel_rows": rows,
             "at_path": at_path, "main_path": path, "precode_rows": precode_rows, "ops_path": ops,
-            "kernels": kernels,
+            "service_path": service, "kernels": kernels,
         }, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -53,6 +53,7 @@ from .filereader import (
     SharedFileReader,
     open_file_reader,
 )
+from .remote import RemoteFileReader, is_remote_url, remote_identity
 from .gzip_format import detect_bgzf, parse_gzip_header, scan_bgzf_members
 from .index import GzipIndex, SeekPoint
 from .markers import propagate_window, replace_markers, replacement_table
@@ -88,6 +89,7 @@ __all__ = [
     "PythonFileReader",
     "RapidgzipError",
     "RemoteFileChangedError",
+    "RemoteFileReader",
     "RemoteIOError",
     "RunningCRC",
     "SeekPoint",
@@ -105,7 +107,9 @@ __all__ = [
     "find_dynamic_trial",
     "gzip_decompress_sequential",
     "inflate_raw",
+    "is_remote_url",
     "open_file_reader",
+    "remote_identity",
     "parse_gzip_header",
     "propagate_window",
     "replace_markers",

@@ -193,10 +193,9 @@ def open_file_reader(
     if isinstance(source, (bytes, bytearray, memoryview)):
         return BytesFileReader(source)
     if isinstance(source, str) and source.startswith(("http://", "https://")):
-        raise NotImplementedError(
-            "http(s) sources need core/remote.py, which a later slice of "
-            "repro_torch ports"
-        )
+        from .remote import RemoteFileReader  # local import: avoids cycle
+
+        return RemoteFileReader(source)
     if isinstance(source, (str, os.PathLike)):
         return SharedFileReader(source)
     return PythonFileReader(source)

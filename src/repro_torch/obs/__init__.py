@@ -1,9 +1,12 @@
-"""Observability substrate of the port: spans and latency histograms.
+"""Observability substrate of the port: tracing, latency histograms,
+Prometheus text.
 
-Copies of ``hist`` and ``trace`` (stdlib only), so the ``_obs_trace`` spans
-in the reader, the chunk fetcher and the decode engine keep working. The
-Prometheus renderer and the snapshot sanitizer belong to the service tier
-and arrive with it.
+Stdlib only, like the reference's: ``repro_torch.core`` imports it from its
+hottest paths, so nothing here may pull in torch, numpy or the service
+layer. ``trace`` records spans, ``hist`` keeps log-bucket latency
+histograms, ``prom`` renders a ``metrics()`` snapshot as Prometheus text and
+``sanitize`` makes any snapshot strictly JSON-serializable. All four are
+byte-for-byte copies of the JAX package's modules.
 """
 
 from .hist import (  # noqa: F401
@@ -15,6 +18,8 @@ from .hist import (  # noqa: F401
     registry,
     reset_histograms,
 )
+from .prom import render_prometheus  # noqa: F401
+from .sanitize import sanitize_snapshot  # noqa: F401
 from .trace import (  # noqa: F401
     attach,
     capture,
@@ -51,8 +56,10 @@ __all__ = [
     "parse_traceparent",
     "recorded_spans",
     "registry",
+    "render_prometheus",
     "reset_histograms",
     "reset_tracing",
+    "sanitize_snapshot",
     "span",
     "spans_for",
     "timed",

@@ -265,3 +265,46 @@ def base64_text(rng, n):
     import base64
 
     return base64.encodebytes(rng.integers(0, 256, n * 3 // 4, dtype=np.uint8).tobytes())[:n]
+
+
+@pytest.mark.parametrize("kind", ["gzip", "bgzf_and_gzip"])
+def test_archive_server_on_the_card_matches_cpu_server(cuda, rng, monkeypatch, kind):
+    """An ArchiveServer on the card serves the same bytes as one on the CPU;
+    its own engine launched both kernels, with no fallback, and the
+    process-wide engine was never reached."""
+    from repro_torch.kernels import engine as tengine
+    from repro_torch.service import ArchiveServer
+
+    def refuse(device="cuda"):
+        raise AssertionError("shared_engine(%r) reached" % device)
+
+    monkeypatch.setattr(tengine, "shared_engine", refuse)
+    data = base64_text(rng, 400_000)
+    blobs = [gzip.compress(data, 6)]
+    if kind == "bgzf_and_gzip":
+        from repro_torch.core.synth import bgzf_compress
+
+        blobs.append(bgzf_compress(data, 6))
+    picks = [(int(o), int(n)) for o, n in zip(rng.integers(0, len(data), 16),
+                                             rng.integers(1, 50_000, 16))]
+    opts = dict(max_workers=4, chunk_size=64 << 10, cache_budget_bytes=8 << 20)
+    served = []
+    tmr.reset_launches()
+    tcrc.reset_launches()
+    for device in ("cuda", "cpu"):
+        with ArchiveServer(device=device, **opts) as srv:
+            out = []
+            for i, blob in enumerate(blobs):
+                h = srv.open(blob, tenant="t%d" % i)
+                out.append(srv.read_range(h, 0, len(data)))
+                out.extend(srv.read_many([(h, o, n) for o, n in picks]))
+            assert srv.device_engine.device.type == device
+            stats = srv.metrics()["engine"]
+            assert stats["interpret"] is (device == "cpu")
+            assert stats["errors"] == 0 and stats["fallbacks"] == {"replace": 0, "crc": 0}
+            assert stats["requests"]["replace"] > 0 and stats["requests"]["crc"] > 0
+        served.append(out)
+        if device == "cuda":
+            assert tmr.launches > 0 and tcrc.launches > 0
+    assert served[0] == served[1]
+    assert served[0][0] == data

@@ -24,9 +24,14 @@ PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
 VERBATIM = [
     "core/bitreader.py", "core/block_finder.py", "core/cache.py",
     "core/chunk_fetcher.py", "core/codec.py", "core/crc32.py",
-    "core/deflate.py", "core/errors.py", "core/gzip_format.py",
-    "core/huffman.py", "core/index.py", "core/markers.py",
-    "core/prefetch.py", "core/zlib_bridge.py", "obs/hist.py", "obs/trace.py",
+    "core/deflate.py", "core/errors.py", "core/filereader.py",
+    "core/gzip_format.py", "core/huffman.py", "core/index.py",
+    "core/markers.py", "core/prefetch.py", "core/remote.py", "core/synth.py",
+    "core/zlib_bridge.py", "obs/hist.py", "obs/prom.py", "obs/sanitize.py",
+    "obs/trace.py", "service/async_server.py", "service/cache_pool.py",
+    "service/index_store.py", "service/metrics.py", "service/scheduler.py",
+    "service/gateway/__init__.py", "service/gateway/admission.py",
+    "service/gateway/client.py", "service/gateway/server.py",
 ]
 
 

@@ -150,6 +150,14 @@ def test_default_device_is_the_card(monkeypatch):
         ParallelGzipReader(gzip.compress(b"x" * 1000))
 
 
-def test_http_source_waits_for_a_later_slice():
-    with pytest.raises(NotImplementedError, match="remote"):
-        reader("http://localhost:1/x.gz")
+def test_http_source_waits_for_a_later_slice(request):
+    """An http(s) source, which slice 1 refused, opens through the port's
+    RemoteFileReader (core/remote.py) since slice 3, as in the reference."""
+    from _range_server import RangeHTTPServer
+
+    from repro_torch.core import RemoteFileReader
+
+    data = data_for(request, 60_000)
+    with RangeHTTPServer(gzip.compress(data, 6)) as srv, reader(srv.url) as r:
+        assert isinstance(r._reader, RemoteFileReader)  # noqa: SLF001
+        assert r.read() == data
