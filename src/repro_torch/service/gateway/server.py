@@ -28,6 +28,16 @@ Source opening policy: ``open_roots`` (when given) jails ``POST
 /v1/archives`` paths to those directory trees, and
 ``allow_remote_sources`` gates http(s) URLs — a gateway that fronts other
 gateways (chaining) keeps it True.
+
+Adapted from the JAX package's ``service/gateway/server.py`` in how it
+closes. ``close()`` must return while a client still holds a keep-alive
+connection: the fleet kills a peer with exactly that call. On Python 3.12
+``asyncio.Server.wait_closed()`` waits for every open connection, so the
+teardown closes the listener, cancels the connection tasks, aborts their
+transports and gathers them, and only then awaits ``wait_closed()`` (the
+reference awaits it first and times out after 15 s). An owned
+`ArchiveServer`, and with it its stage-2 engine, is shut down even when the
+teardown fails.
 """
 
 from __future__ import annotations
@@ -311,20 +321,24 @@ class GatewayServer:
         if self._closed:
             return
         self._closed = True
-        if self._started:
-            try:
-                asyncio.run_coroutine_threadsafe(
-                    self._teardown(), self._loop
-                ).result(timeout=15)
-            finally:
-                self._stop_loop()
-        if self._owns_sync:
-            self._sync.shutdown()
+        try:
+            if self._started:
+                try:
+                    asyncio.run_coroutine_threadsafe(
+                        self._teardown(), self._loop
+                    ).result(timeout=15)
+                finally:
+                    self._stop_loop()
+        finally:
+            if self._owns_sync:
+                self._sync.shutdown()
 
     async def _teardown(self) -> None:
+        # Stop accepting first; wait_closed() comes last, once every
+        # connection is gone (on 3.12 it waits for open connections, and a
+        # keep-alive client would hold it until the timeout).
         if self._server is not None:
             self._server.close()
-            await self._server.wait_closed()
         for task in list(self._conn_tasks):
             task.cancel()
         # Abort every remaining transport, for two reasons. (1) A cancelled
@@ -343,6 +357,8 @@ class GatewayServer:
                 transport.abort()
         if self._conn_tasks:
             await asyncio.gather(*self._conn_tasks, return_exceptions=True)
+        if self._server is not None:
+            await self._server.wait_closed()
         if self._asrv is not None:
             await self._asrv.shutdown()  # bridge only: we own the sync server
 

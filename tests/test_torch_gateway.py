@@ -11,6 +11,7 @@ text and carry the port's engine counters. A gateway asked for
 import http.client
 import json
 import re
+import time
 
 import numpy as np
 import pytest
@@ -185,3 +186,23 @@ def test_gateway_on_cuda_raises_without_a_card(monkeypatch):
         GatewayServer(**SERVER)
     with pytest.raises(RuntimeError, match="CUDA"):
         GatewayServer(device="cuda", **SERVER)
+
+
+def test_close_returns_while_a_client_holds_its_connection(archive):
+    """The port's gateway closes at once with a keep-alive client still
+    connected (Python 3.12's ``wait_closed`` waits for open connections,
+    so it must come after they are aborted), and shuts down the engine of
+    the server it owns."""
+    path, data = archive
+    gw = GatewayServer(device="cpu", stream_span=64 << 10, **SERVER).start()
+    engine = gw.server.device_engine
+    client = GatewayClient(gw.url, source=path)
+    try:
+        assert client.pread(1000, 5000) == data[1000:6000]
+        t0 = time.monotonic()
+        gw.close()
+        assert time.monotonic() - t0 < 1.0
+        assert engine.stats()["closed"]
+    finally:
+        client.close()
+        gw.close()

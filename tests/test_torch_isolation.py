@@ -31,7 +31,7 @@ VERBATIM = [
     "obs/trace.py", "service/async_server.py", "service/cache_pool.py",
     "service/index_store.py", "service/metrics.py", "service/scheduler.py",
     "service/gateway/__init__.py", "service/gateway/admission.py",
-    "service/gateway/client.py", "service/gateway/server.py",
+    "service/gateway/client.py",
 ]
 
 
