@@ -43,6 +43,29 @@ Phases, each fatal on failure:
      kernel did not launch in the phase, the engine in metrics() is not
      the server's own, the process-wide shared_engine was reached, or
      /metrics lacks the engine's counters;
+  8. the fleet (repro_torch.service.fleet): an 8 MiB base64 corpus made
+     from --seed + 20, gzip -6, in a local file; three GatewayServers,
+     each over its own ArchiveServer with a CUDA engine and its own
+     IndexStore, the stores cross-wired by make_index_fallback, behind a
+     FleetRouter(eject_after=1). The archive is streamed in 64 KiB reads
+     under torch.profiler; after 1 MiB its owner is killed with close()
+     while the router's client holds its connection, and the stream must
+     finish on the next peer bit for bit. The third peer then opens the
+     archive warm from its peers' index and serves 64 seeded ranges of
+     4 KiB to 1 MiB, each checked. Fatal: the kill's close() takes over
+     1 s or leaves its engine open, a surviving peer's engine is not its
+     own or fell back or erred, a first-pass peer's engine did not
+     dispatch both kernels, shared_engine was reached, or a kernel did not
+     launch in the phase;
+  9. the corpus pipeline (repro_torch.data, the paper's §1.1 deployment):
+     four base64 shards of 2 MiB made from --seed + 30..33, gzip -6, three
+     local files and one http:// URL; one epoch of
+     GzipCorpusDataset(seq_len=2048, batch_size=8, device="cuda") over an
+     IndexStore under torch.profiler, whose tokens must reproduce the
+     shards in order; the state saved in the middle of the http:// shard is
+     restored by a new dataset over the warm store, whose next 8 batches
+     must equal the first run's with no first pass. Fatal: a kernel did
+     not launch, or the engine erred or fell back;
   then one JSON line of kernel results and, last, the {"ok": true, ...}
   line.
 
@@ -54,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import gzip
 import json
 import os
@@ -665,6 +689,28 @@ def check_prometheus(gw, label: str) -> dict:
     return values
 
 
+@contextlib.contextmanager
+def shared_engine_untouched():
+    """Fails, once the block is left without an error, if anything in it
+    reached the process-wide ``shared_engine``: a call, or a change to the
+    engines it holds."""
+    from repro_torch.kernels import engine as tengine
+
+    before = dict(tengine._shared)  # noqa: SLF001
+    calls = []
+    real = tengine.shared_engine
+    tengine.shared_engine = lambda dev="cuda": calls.append(dev) or real(dev)
+    try:
+        yield
+    finally:
+        tengine.shared_engine = real
+    after = dict(tengine._shared)  # noqa: SLF001
+    if calls or after.keys() != before.keys() or any(
+            after[k] is not v for k, v in before.items()):
+        raise AssertionError("the process-wide shared_engine was reached in the phase: calls %s"
+                             % calls)
+
+
 def service_path(seed: int, card: str):
     """Phase 7: the archive service on the card, driven over HTTP."""
     import shutil
@@ -676,7 +722,6 @@ def service_path(seed: int, card: str):
     sys.path.insert(0, str(ROOT / "tests"))
     from _range_server import RangeHTTPServer
 
-    from repro_torch.kernels import engine as tengine
     from repro_torch.service import IndexStore
     from repro_torch.service.gateway import GatewayServer, TenantAdmission
 
@@ -702,12 +747,6 @@ def service_path(seed: int, card: str):
                for size in rng.permutation(np.repeat(RANGE_SIZES, per_size))]
               for c in corpora] for _ in range(TENANTS)]
 
-    # The process-wide engine must stay out of the phase: count calls to it
-    # and keep what it held before.
-    shared_before = dict(tengine._shared)  # noqa: SLF001
-    shared_calls = []
-    real_shared = tengine.shared_engine
-    tengine.shared_engine = lambda dev="cuda": shared_calls.append(dev) or real_shared(dev)
     remote = RangeHTTPServer(blobs[1])
     gateways = []
     try:
@@ -794,16 +833,10 @@ def service_path(seed: int, card: str):
         if gw.server.device_engine is engine1:
             raise AssertionError("server 2 reused server 1's engine")
     finally:
-        tengine.shared_engine = real_shared
         for g in gateways:
             g.close()
         remote.close()
         shutil.rmtree(work, ignore_errors=True)
-    shared_after = dict(tengine._shared)  # noqa: SLF001
-    if shared_calls or shared_after.keys() != shared_before.keys() or any(
-            shared_after[k] is not v for k, v in shared_before.items()):
-        raise AssertionError("the process-wide shared_engine was reached in the phase: calls %s"
-                             % shared_calls)
 
     mbps = {}
     for t in range(TENANTS):
@@ -825,6 +858,354 @@ def service_path(seed: int, card: str):
         "shapes": shapes, "fetcher": fetcher1, "persisted": len(keys),
         "prometheus": {"server 1": prom1, "server 2": prom2},
     }
+
+# ---------------------------------------------------------------------------
+# phase 8: the fleet
+# ---------------------------------------------------------------------------
+
+FLEET_PEERS = 3
+FLEET_READ = 64 << 10  # the client's read size and the gateways' stream span
+FLEET_KILL_AT = 1 << 20  # stream bytes before the owner is killed
+FLEET_RANGES = 64
+
+
+def engine_kinds(engine) -> set:
+    """The stage-2 kinds ("replace", "crc") ``engine`` dispatched."""
+    return {k[0] for k in engine.dispatch_shapes()}
+
+
+def fleet_path(seed: int, card: str):
+    """Phase 8: three gateway peers, each over its own ArchiveServer and
+    CUDA engine and its own IndexStore (the stores cross-wired by
+    make_index_fallback), behind a FleetRouter. The owner of the archive is
+    killed mid-stream; the stream must finish on the next peer bit for bit;
+    the third peer must then open warm from its peers' index."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import crc32 as kc
+    from repro_torch.kernels import marker_replace as mr
+    from repro_torch.service import IndexStore
+    from repro_torch.service.fleet import FleetRouter, make_index_fallback
+    from repro_torch.service.gateway import GatewayClient, GatewayServer
+
+    corpus = base64_corpus(seed + 20, SERVICE_MIB << 20)
+    blob = gzip.compress(corpus, 6, mtime=0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="fleet-", dir=ROOT / "build"))
+    path = work / "corpus.gz"
+    path.write_bytes(blob)
+    rng = np.random.default_rng(seed + 4)
+    per_size = FLEET_RANGES // len(RANGE_SIZES)
+    plan = [(int(rng.integers(0, len(corpus) - size + 1)), int(size))
+            for size in rng.permutation(np.repeat(RANGE_SIZES, per_size))]
+
+    gws, router, clients = [], None, []
+    mr.reset_launches()
+    kc.reset_launches()
+    try:
+        for i in range(FLEET_PEERS):
+            gws.append(GatewayServer(
+                device="cuda", max_workers=8, cache_budget_bytes=256 << 20,
+                chunk_size=1 << 20, reader_parallelization=4, stream_span=FLEET_READ,
+                index_store=IndexStore(str(work / ("index-%d" % i))),
+            ).start())
+        urls = [gw.url for gw in gws]
+        for i, gw in enumerate(gws):
+            gw.server.index_store.set_remote_fallback(make_index_fallback(urls, exclude=[urls[i]]))
+        router = FleetRouter(urls, eject_after=1)
+
+        # 1-2. Stream the archive; kill its owner after FLEET_KILL_AT bytes
+        # while the router's client holds the connection. The open's HEAD
+        # asks the owner for the size, which runs its whole first pass; after
+        # the kill, the survivor's open does the same.
+        t_start = time.perf_counter()
+        c = router.open(str(path))
+        clients.append(c)
+        open_s = time.perf_counter() - t_start
+        owner = next(gw for gw in gws if gw.url == c.peer)
+        owner_engine = owner.server.device_engine
+        got, n, t_kill, close_s, gap_s, n_kill, stall_s = [], 0, None, None, None, None, 0.0
+        t_start = t_last = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for chunk in c.stream(read_size=FLEET_READ):
+                now = time.perf_counter()
+                if t_kill is not None:
+                    if gap_s is None:
+                        gap_s = now - t_kill
+                    stall_s = max(stall_s, now - t_last)
+                t_last = now
+                got.append(chunk)
+                n += len(chunk)
+                if t_kill is None and n >= FLEET_KILL_AT:
+                    n_kill = n
+                    owner_kinds = engine_kinds(owner_engine)
+                    owner_stats = owner_engine.stats()
+                    t_kill = time.perf_counter()
+                    owner.close()
+                    close_s = time.perf_counter() - t_kill
+                    t_last = time.perf_counter()
+        t_end = time.perf_counter()
+        device_ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                             for e in prof.key_averages() if e.self_device_time_total > 0),
+                            key=lambda e: -e[1])
+        busy_ms = sum(e[1] for e in device_ops)
+        if t_kill is None:
+            raise AssertionError("the stream ended before the owner was killed")
+        if close_s > 1.0:
+            raise AssertionError("killing the owner: close() took %.3f s" % close_s)
+        if not owner_engine.stats()["closed"]:
+            raise AssertionError("the killed owner's engine is still open")
+        if b"".join(got) != corpus:
+            raise AssertionError("the stream across the owner's death differs from the corpus")
+        if c.stats["failovers"] < 1 or c.stats["resumed_streams"] < 1:
+            raise AssertionError("no failover in the stream: %s" % c.stats)
+        survivor = next(gw for gw in gws if gw.url == c.peer)
+        if survivor is owner:
+            raise AssertionError("the stream ended on the killed owner")
+        survivor_kinds = engine_kinds(survivor.server.device_engine)
+        if owner_kinds != {"replace", "crc"} or survivor_kinds != {"replace", "crc"}:
+            raise AssertionError("a first-pass peer's engine did not dispatch both kernels: "
+                                 "owner %s, survivor %s" % (owner_kinds, survivor_kinds))
+        client_stats = dict(c.stats)
+        c.close()  # closes the survivor's handle, which persists its index
+
+        # 3. The third peer never saw the archive: its open imports the
+        # index from a peer, then serves seeded ranges.
+        third = next(gw for gw in gws if gw is not owner and gw is not survivor)
+        t0 = time.perf_counter()
+        g = GatewayClient(third.url, source=str(path))
+        clients.append(g)
+        stat = g.stat()
+        warm_open_s = time.perf_counter() - t0
+        lat = {size: [] for size in RANGE_SIZES}
+        for off, size in plan:
+            t0 = time.perf_counter()
+            status, _, body = http_call(third.url, "GET", "/v1/archives/%s/bytes" % g.handle,
+                                        {"Range": "bytes=%d-%d" % (off, off + size - 1)})
+            lat[size].append(time.perf_counter() - t0)
+            if status != 206 or body != corpus[off : off + size]:
+                raise AssertionError("third peer GET bytes=%d+%d: status %s, bytes differ"
+                                     % (off, size, status))
+        metrics3 = third.server.metrics()
+        remote_hits = metrics3["index_store"]["remote_hits"]
+        nominal = metrics3["fleet"]["fetcher"]["nominal_tasks"]
+        if not stat["index_was_warm"] or remote_hits < 1 or nominal:
+            raise AssertionError("the third peer's open was not warm from its peers: warm %s, "
+                                 "remote_hits %d, %d nominal tasks"
+                                 % (stat["index_was_warm"], remote_hits, nominal))
+        engines = {"owner": owner_stats,
+                   "survivor": check_server_engine(survivor, "survivor"),
+                   "third": check_server_engine(third, "third peer")}
+        router.membership.probe_once()
+        membership = router.membership.snapshot()
+        if membership["alive"] != FLEET_PEERS - 1 or membership["peers"][owner.url]["alive"]:
+            raise AssertionError("the probe did not eject the killed owner: %s" % membership)
+    finally:
+        for client in clients:
+            client.close()
+        if router is not None:
+            router.close()
+        for gw in gws:
+            gw.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+    launches = {"marker_replace": mr.launches, "crc32": kc.launches}
+    stream_s = t_end - t_start
+    return {
+        "card": card, "peers": FLEET_PEERS, "corpus_bytes": len(corpus), "gzip_bytes": len(blob),
+        "read_size": FLEET_READ, "killed_at": n_kill,
+        "open_s": open_s, "stream_s": stream_s, "close_s": close_s, "gap_s": gap_s,
+        "stall_s": stall_s,
+        "MBps_before_kill": n_kill / (t_kill - t_start) / 1e6,
+        "MBps_after_kill": (len(corpus) - n_kill) / (t_end - t_kill) / 1e6,
+        "MBps_resumed": (len(corpus) - n_kill) / (t_end - t_kill - gap_s) / 1e6,
+        "client": client_stats, "owner_kinds": sorted(owner_kinds),
+        "stream_device_busy_ms": busy_ms,
+        "stream_device_idle_share": 1 - busy_ms / (stream_s * 1e3) if busy_ms else None,
+        "stream_device_ops": [{"name": k, "ms": ms, "count": cnt} for k, ms, cnt in device_ops],
+        "warm_open_s": warm_open_s, "remote_hits": remote_hits,
+        "pread_latency": {str(size): quantiles_ms(v) for size, v in lat.items()},
+        "pread_all": quantiles_ms([x for v in lat.values() for x in v]),
+        "engines": engines, "launches": launches,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the corpus pipeline
+# ---------------------------------------------------------------------------
+
+PIPELINE_SHARDS = 4
+PIPELINE_SHARD_MIB = 2
+PIPELINE_HTTP_SHARD = 2  # the shard served over http://, and the one the restore lands in
+PIPELINE_SEQ = 2048
+PIPELINE_BATCH = 8
+PIPELINE_RESTORE_BATCHES = 8
+
+
+def pipeline_path(seed: int, card: str):
+    """Phase 9: one epoch of GzipCorpusDataset over four base64 shards (three
+    local files, one http:// URL) on the process-wide CUDA engine, then a
+    restore in the middle of the http:// shard over the warm IndexStore."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _range_server import RangeHTTPServer
+
+    from repro_torch.data import BOS, ByteTokenizer, GzipCorpusDataset
+    from repro_torch.kernels import crc32 as kc
+    from repro_torch.kernels import marker_replace as mr
+    from repro_torch.kernels.engine import shared_engine
+    from repro_torch.service import IndexStore
+
+    corpora = [base64_corpus(seed + 30 + i, PIPELINE_SHARD_MIB << 20)
+               for i in range(PIPELINE_SHARDS)]
+    blobs = [gzip.compress(c, 6, mtime=0) for c in corpora]
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="pipeline-", dir=ROOT / "build"))
+    remote = RangeHTTPServer(blobs[PIPELINE_HTTP_SHARD])
+    engine = shared_engine("cuda")  # the engine every reader below resolves through
+    before = engine.stats()
+    datasets = []
+    mr.reset_launches()
+    kc.reset_launches()
+    try:
+        shards = []
+        for i, b in enumerate(blobs):
+            if i == PIPELINE_HTTP_SHARD:
+                shards.append(remote.url)
+            else:
+                (work / ("shard-%d.gz" % i)).write_bytes(b)
+                shards.append(str(work / ("shard-%d.gz" % i)))
+        store = IndexStore(str(work / "index"))
+
+        def dataset():
+            ds = GzipCorpusDataset(shards, seq_len=PIPELINE_SEQ, batch_size=PIPELINE_BATCH,
+                                   device="cuda", index_store=store, loop=False)
+            datasets.append(ds)
+            return ds
+
+        # 1. One epoch; the state is saved once, in the second half of the
+        # http:// shard, where the buffer holds only that shard's bytes.
+        half = len(corpora[PIPELINE_HTTP_SHARD]) // 2
+        batches, state, saved_at = [], None, None
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ds = dataset()
+            for batch in ds:
+                if not batches:
+                    first_batch_s = time.perf_counter() - t0
+                batches.append(batch["tokens"])
+                st = ds.state_dict()
+                if (state is None and st["shard_idx"] == PIPELINE_HTTP_SHARD
+                        and st["byte_offset"] - st["pending_buffer"] >= half):
+                    state, saved_at = st, len(batches)
+            ds.close()
+        epoch_s = time.perf_counter() - t0
+        device_ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                             for e in prof.key_averages() if e.self_device_time_total > 0),
+                            key=lambda e: -e[1])
+        busy_ms = sum(e[1] for e in device_ops)
+        stream = np.concatenate([b.reshape(-1) for b in batches])
+        if any(b.shape != (PIPELINE_BATCH, PIPELINE_SEQ + 1) or b.dtype != np.int32
+               for b in batches):
+            raise AssertionError("a batch is not int32 of shape (%d, %d)"
+                                 % (PIPELINE_BATCH, PIPELINE_SEQ + 1))
+        if int((stream == BOS).sum()) != PIPELINE_SHARDS or stream[0] != BOS:
+            raise AssertionError("the epoch does not start each shard once with BOS")
+        if ByteTokenizer().decode(stream) != b"".join(corpora):
+            raise AssertionError("the epoch's tokens do not reproduce the shards in order")
+        if state is None:
+            raise AssertionError("the epoch never reached the middle of shard %d"
+                                 % PIPELINE_HTTP_SHARD)
+        expected = batches[saved_at : saved_at + PIPELINE_RESTORE_BATCHES]
+
+        # 2. A new dataset over the warm store restores the saved state.
+        t0 = time.perf_counter()
+        ds2 = dataset()
+        ds2.load_state_dict(state)
+        restored = [ds2.next_batch()["tokens"]]
+        restore_s = time.perf_counter() - t0
+        restored += [ds2.next_batch()["tokens"] for _ in range(PIPELINE_RESTORE_BATCHES - 1)]
+        fetcher = ds2._reader.stats()["fetcher"]  # noqa: SLF001
+        resolver_ok = ds2._reader._fetcher.resolver is engine  # noqa: SLF001
+        ds2.close()
+        if not resolver_ok:
+            raise AssertionError("the restored reader resolves through another engine")
+        if len(restored) != len(expected) or any(
+                not np.array_equal(a, b) for a, b in zip(restored, expected)):
+            raise AssertionError("the restored batches differ from the first run's")
+        if fetcher["nominal_tasks"]:
+            raise AssertionError("the restore ran a first pass: %d nominal tasks"
+                                 % fetcher["nominal_tasks"])
+    finally:
+        for ds in datasets:
+            ds.close()
+        remote.close()
+        shutil.rmtree(work, ignore_errors=True)
+    after = engine.stats()
+    engine.shutdown()
+    if after["errors"] != before["errors"] or after["fallbacks"] != before["fallbacks"]:
+        raise AssertionError("the pipeline's engine erred or fell back: errors %d, fallbacks %s"
+                             % (after["errors"], after["fallbacks"]))
+    tokens = len(batches) * PIPELINE_BATCH * (PIPELINE_SEQ + 1)
+    return {
+        "card": card, "shards": PIPELINE_SHARDS, "corpus_bytes": [len(c) for c in corpora],
+        "gzip_bytes": [len(b) for b in blobs], "http_shard": PIPELINE_HTTP_SHARD,
+        "seq_len": PIPELINE_SEQ, "batch_size": PIPELINE_BATCH, "batches": len(batches),
+        "tokens": tokens, "epoch_s": epoch_s, "tokens_per_s": tokens / epoch_s,
+        "corpus_MBps": sum(map(len, corpora)) / epoch_s / 1e6,
+        "first_batch_s": first_batch_s, "saved_after_batch": saved_at, "state": state,
+        "restore_s": restore_s, "restore_fetcher": fetcher,
+        "epoch_device_busy_ms": busy_ms,
+        "epoch_device_idle_share": 1 - busy_ms / (epoch_s * 1e3) if busy_ms else None,
+        "epoch_device_ops": [{"name": k, "ms": ms, "count": cnt} for k, ms, cnt in device_ops],
+        "engine": {k: after[k] for k in ("requests", "batches", "dispatches", "fallbacks",
+                                         "errors")},
+        "launches": {"marker_replace": mr.launches, "crc32": kc.launches},
+    }
+
+
+def log_fleet(fleet: dict, card: str) -> None:
+    log("fleet path [%s]: %d peers, a %d-byte archive (gzip %d); open on the owner (its first "
+        "pass) %.3f s; stream MB/s %.3f before the kill, %.3f after it (%.3f from the first "
+        "chunk after it); owner killed after %d bytes, its close() %.4f s, kill to next chunk "
+        "%.4f s, longest stall after the kill (the survivor's first pass) %.3f s; client %s"
+        % (card, fleet["peers"], fleet["corpus_bytes"], fleet["gzip_bytes"], fleet["open_s"],
+           fleet["MBps_before_kill"], fleet["MBps_after_kill"], fleet["MBps_resumed"],
+           fleet["killed_at"], fleet["close_s"], fleet["gap_s"], fleet["stall_s"],
+           json.dumps(fleet["client"])))
+    log("fleet path [%s]: stream device busy %.3f ms of %.3f s (idle share %s); device ops %s"
+        % (card, fleet["stream_device_busy_ms"], fleet["stream_s"],
+           fleet["stream_device_idle_share"], json.dumps(fleet["stream_device_ops"])))
+    log("fleet path [%s]: third peer warm open %.4f s (remote_hits %d); pread p50/p99 ms, all "
+        "%s, by size %s; launches %s; engine requests: owner %s, survivor %s, third %s"
+        % (card, fleet["warm_open_s"], fleet["remote_hits"], json.dumps(fleet["pread_all"]),
+           json.dumps(fleet["pread_latency"]), json.dumps(fleet["launches"]),
+           *(json.dumps(fleet["engines"][k]["requests"]) for k in ("owner", "survivor", "third"))))
+
+
+def log_pipeline(pipeline: dict, card: str) -> None:
+    log("pipeline path [%s]: %d shards of %d bytes (gzip %s, shard %d over http://), %d batches "
+        "of %d x %d in %.3f s: %.1f tokens/s (%.3f MB/s of corpus), first batch %.3f s; restore "
+        "after batch %d in %.4f s to the first batch, %d nominal tasks"
+        % (card, pipeline["shards"], pipeline["corpus_bytes"][0], pipeline["gzip_bytes"],
+           pipeline["http_shard"], pipeline["batches"], pipeline["batch_size"],
+           pipeline["seq_len"] + 1, pipeline["epoch_s"], pipeline["tokens_per_s"],
+           pipeline["corpus_MBps"], pipeline["first_batch_s"], pipeline["saved_after_batch"],
+           pipeline["restore_s"], pipeline["restore_fetcher"]["nominal_tasks"]))
+    log("pipeline path [%s]: epoch device busy %.3f ms (idle share %s); device ops %s; engine %s; "
+        "launches %s" % (card, pipeline["epoch_device_busy_ms"],
+                         pipeline["epoch_device_idle_share"],
+                         json.dumps(pipeline["epoch_device_ops"]), json.dumps(pipeline["engine"]),
+                         json.dumps(pipeline["launches"])))
 
 
 def main() -> int:
@@ -901,7 +1282,8 @@ def main() -> int:
 
     mr.reset_launches()
     kc.reset_launches()
-    service = service_path(args.seed, card)
+    with shared_engine_untouched():
+        service = service_path(args.seed, card)
     service["launches"] = {"marker_replace": mr.launches, "crc32": kc.launches}
     if min(service["launches"].values()) < 1:
         raise AssertionError("a kernel never launched on the service path: %s"
@@ -923,6 +1305,18 @@ def main() -> int:
            service["engine"]["errors"], json.dumps(service["launches"]),
            json.dumps(service["shapes"]), json.dumps(service["engine_cold_server"]["requests"])))
 
+    with shared_engine_untouched():
+        fleet = fleet_path(args.seed, card)
+    if min(fleet["launches"].values()) < 1:
+        raise AssertionError("a kernel never launched on the fleet path: %s" % fleet["launches"])
+    log_fleet(fleet, card)
+
+    pipeline = pipeline_path(args.seed, card)
+    if min(pipeline["launches"].values()) < 1:
+        raise AssertionError("a kernel never launched on the pipeline path: %s"
+                             % pipeline["launches"])
+    log_pipeline(pipeline, card)
+
     sources = {
         "marker_replace": ("src/repro_torch/kernels/csrc/marker_replace.cu",
                            "src/repro/kernels/marker_replace.py:101"),
@@ -933,6 +1327,10 @@ def main() -> int:
     # Each kernel's launches on its own path: the gzip read for stage 2, the
     # ops path for the precheck.
     path_launches = dict(path["launches"], precode_check=ops["launches"]["precode_check"])
+    # And every path's launches, each counted from 0 (the precheck runs on
+    # the ops path only).
+    by_path = {"main": path["launches"], "ops": ops["launches"], "service": service["launches"],
+               "fleet": fleet["launches"], "pipeline": pipeline["launches"]}
     checked = rows + at_path + precode_rows
     kernels = []
     for row in at_path:
@@ -943,13 +1341,15 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in checked if r["kernel"] == name),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "launches_by_path": {p: n.get(name, 0) for p, n in by_path.items()},
         })
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
             "card": card, "build_s": build_s, "launch_floor_ms": floor_ms, "kernel_rows": rows,
             "at_path": at_path, "main_path": path, "precode_rows": precode_rows, "ops_path": ops,
-            "service_path": service, "kernels": kernels,
+            "service_path": service, "fleet_path": fleet, "pipeline_path": pipeline,
+            "kernels": kernels,
         }, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

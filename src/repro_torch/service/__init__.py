@@ -34,8 +34,16 @@ propagation, per-tenant admission control) with a FileReader-shaped client:
     with GatewayServer(cache_budget_bytes=32 << 20) as gw:
         page = GatewayClient(gw.url, source="corpus-00.json.gz").pread(0, 4096)
 
-The fleet subpackage (``service/fleet``: rendezvous routing across gateway
-peers, failover, index exchange) is a later slice of the port.
+One gateway is one machine's ceiling; the `fleet` subpackage shards
+archives across N gateway peers by rendezvous hashing of file identity,
+with health-probe membership, mid-stream failover via exact Range resume,
+and cross-node seek-index exchange (a cold open on one node imports the
+index another node already built):
+
+    from repro_torch.service.fleet import FleetRouter
+
+    with FleetRouter([gw1.url, gw2.url, gw3.url]) as router:
+        page = router.open("corpus-00.json.gz").pread(0, 4096)
 """
 
 from .async_server import AsyncArchiveServer
@@ -51,6 +59,13 @@ from .gateway import (  # noqa: E402 - gateway builds on the modules above
     GatewayServer,
     TenantAdmission,
 )
+from .fleet import (  # noqa: E402 - fleet builds on the gateway
+    FleetClient,
+    FleetMembership,
+    FleetRouter,
+    FleetUnavailable,
+    make_index_fallback,
+)
 
 __all__ = [
     "ACCESS",
@@ -61,6 +76,10 @@ __all__ = [
     "AsyncArchiveServer",
     "CachePool",
     "FairExecutor",
+    "FleetClient",
+    "FleetMembership",
+    "FleetRouter",
+    "FleetUnavailable",
     "GatewayClient",
     "GatewayError",
     "GatewayServer",
@@ -75,4 +94,5 @@ __all__ = [
     "default_size_of",
     "file_identity",
     "format_summary",
+    "make_index_fallback",
 ]

@@ -308,3 +308,70 @@ def test_archive_server_on_the_card_matches_cpu_server(cuda, rng, monkeypatch, k
             assert tmr.launches > 0 and tcrc.launches > 0
     assert served[0] == served[1]
     assert served[0][0] == data
+
+
+def test_fleet_pread_failover_on_the_card(cuda, rng, monkeypatch, tmp_path):
+    """Two gateway peers, each over its own ArchiveServer and engine on the
+    card. Killing the owner under a held connection returns at once and
+    shuts its engine down; the next pread fails over to the other peer and
+    returns the same bytes."""
+    import time
+
+    from repro_torch.kernels import engine as tengine
+    from repro_torch.service.fleet import FleetRouter
+    from repro_torch.service.gateway import GatewayServer
+
+    def refuse(device="cuda"):
+        raise AssertionError("shared_engine(%r) reached" % device)
+
+    monkeypatch.setattr(tengine, "shared_engine", refuse)
+    data = base64_text(rng, 600_000)
+    path = tmp_path / "fleet.gz"
+    path.write_bytes(gzip.compress(data, 6))
+    opts = dict(max_workers=4, chunk_size=64 << 10, cache_budget_bytes=8 << 20)
+    gws = [GatewayServer(device="cuda", stream_span=64 << 10, **opts).start() for _ in range(2)]
+    router = FleetRouter([gw.url for gw in gws], eject_after=1)
+    try:
+        c = router.open(str(path), block_size=16 << 10, cache_blocks=1)
+        owner = next(gw for gw in gws if gw.url == c.peer)
+        engine = owner.server.device_engine
+        assert engine.device.type == "cuda"
+        assert c.pread(0, len(data)) == data
+        t0 = time.monotonic()
+        owner.close()
+        assert time.monotonic() - t0 < 1.0
+        assert engine.stats()["closed"]
+        tmr.reset_launches()
+        tcrc.reset_launches()
+        assert c.pread(400_000, 50_000) == data[400_000:450_000]
+        assert c.stats["failovers"] == 1 and c.peer != owner.url
+        survivor = next(gw for gw in gws if gw.url == c.peer)
+        stats = survivor.server.device_engine.stats()
+        assert stats["errors"] == 0 and stats["fallbacks"] == {"replace": 0, "crc": 0}
+        assert tmr.launches > 0 and tcrc.launches > 0  # the survivor's first pass
+        c.close()
+    finally:
+        router.close()
+        for gw in gws:
+            gw.close()
+
+
+def test_one_shard_pipeline_on_the_card_matches_cpu(cuda, rng):
+    """GzipCorpusDataset on the card's engine gives the batches of one on
+    the kernels' plain versions, and launched both kernels."""
+    from repro_torch.data import GzipCorpusDataset
+
+    shard = gzip.compress(base64_text(rng, 500_000), 6)
+    kw = dict(seq_len=256, batch_size=4, parallelization=4, chunk_size=64 << 10, loop=False)
+    tmr.reset_launches()
+    tcrc.reset_launches()
+    got = {}
+    for device in ("cuda", "cpu"):
+        ds = GzipCorpusDataset([shard], device=device, **kw)
+        got[device] = [b["tokens"] for b in ds]
+        ds.close()
+        if device == "cuda":
+            assert tmr.launches > 0 and tcrc.launches > 0
+    assert len(got["cuda"]) == len(got["cpu"]) > 0
+    for a, b in zip(got["cuda"], got["cpu"]):
+        np.testing.assert_array_equal(a, b)

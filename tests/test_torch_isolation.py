@@ -31,7 +31,10 @@ VERBATIM = [
     "obs/trace.py", "service/async_server.py", "service/cache_pool.py",
     "service/index_store.py", "service/metrics.py", "service/scheduler.py",
     "service/gateway/__init__.py", "service/gateway/admission.py",
-    "service/gateway/client.py",
+    "service/gateway/client.py", "service/fleet/__init__.py",
+    "service/fleet/client.py", "service/fleet/exchange.py",
+    "service/fleet/membership.py", "service/fleet/router.py",
+    "data/__init__.py", "data/tokenizer.py",
 ]
 
 
