@@ -66,6 +66,27 @@ Phases, each fatal on failure:
      restored by a new dataset over the warm store, whose next 8 batches
      must equal the first run's with no first pass. Fatal: a kernel did
      not launch, or the engine erred or fell back;
+ 10. the serve path (repro_torch.models, repro_torch.serve): granite-3-2b
+     at full width (40 layers, d_model 2048, vocab 49 155, bf16, random
+     weights from --seed + 40) built on the card; make_serve_steps prefills
+     4 prompts of 512 tokens and greedy-decodes 64 tokens, and after each
+     decode step every sequence reads 512 bytes of one of two 1 MiB base64
+     gzip shards (--seed + 41, + 42) through an ArchiveServer(device="cuda")
+     at the addresses of examples/serve_batched.py, each checked; 8 more
+     steps run with no reads beside them and 16 more, reads included,
+     under torch.profiler for the device's idle share. The decode
+     logits are held to the train-mode forward of the same 576 tokens at
+     rtol = atol = 5e-2 and reported: the served bf16 run, its first 1-8
+     layers, and the whole model in fp32 and fp64 (the JAX package's init
+     makes attention nearly hard at this width: a rounding flips keys, and
+     the flip carries through every later layer). Fatal: each layer of
+     each decode step against the forward's, fed the forward's input to
+     that layer, in fp64 (reported in bf16). Then the seven other decoder
+     configs at smoke width: prefill plus decode against the forward in
+     bf16, and the card against the same module on the host in bf16
+     (reported) and fp64 (fatal). Fatal: a byte differs, the engine fell
+     back or erred, a kernel did not launch in the phase, a model tensor
+     lies off the card, shared_engine was reached, or a check misses;
   then one JSON line of kernel results and, last, the {"ok": true, ...}
   line.
 
@@ -1173,6 +1194,434 @@ def pipeline_path(seed: int, card: str):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the serve path
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "granite-3-2b"
+SERVE_BATCH = 4
+SERVE_PROMPT = 512
+SERVE_NEW = 64  # decode steps checked against the full forward
+SERVE_QUIET = 8  # decode steps after them with no reads beside them
+SERVE_PROFILED = 16  # decode steps after those, under torch.profiler
+SERVE_SHARDS = 2
+SERVE_SHARD_MIB = 1
+SERVE_READ = 512
+SERVE_TOL = 5e-2  # rtol = atol, decode logits against the train-mode forward
+SERVE_DEPTHS = (1, 2, 4, 8)  # first layers of the served weights, checked in bf16 too
+SMOKE_FAMILIES = ("gemma-2b", "qwen2.5-32b", "internlm2-20b", "deepseek-moe-16b",
+                  "deepseek-v2-236b", "hymba-1.5b", "internvl2-76b")
+SMOKE_TOL = 5e-2  # card against host, and decode against the forward ...
+SMOKE_MLA_DECODE_TOL = 3e-1  # ... but MLA's absorbed decode (tests/test_torch_serve.py)
+
+
+def allclose_ratio(ref, got, tol: float) -> float:
+    """max |got - ref| / (tol + tol |ref|): at most 1 where torch.allclose
+    (rtol = atol = tol) holds."""
+    ref, got = ref.float(), got.float().to(ref.device)
+    return float(((got - ref).abs() / (tol + tol * ref.abs())).max())
+
+
+def teacher_forced(model, tokens, prompt: int, extra=None):
+    """(forward logits of ``tokens`` [B, S], prefill logits of the first
+    ``prompt``, decode logits of the rest, each fed its true token)."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.serve import make_serve_steps, prefill_to_decode_caches
+
+    cfg = model.cfg
+    extra = extra or {}
+    B, S = tokens.shape
+    prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
+    with torch.inference_mode():
+        full = transformer.forward(cfg, model, tokens, mode="train",
+                                   prefix_embeds=extra.get("patches"))[0][:, prefix:]
+    prefill_fn, decode_fn, _ = make_serve_steps(model, batch=B, max_len=S + prefix)
+    logits, pc = prefill_fn({"tokens": tokens[:, :prompt], **extra})
+    caches = prefill_to_decode_caches(cfg, model, pc, B, S + prefix, prompt + prefix)
+    steps = []
+    for t in range(prompt, S):
+        _, logits_d, caches = decode_fn(tokens[:, t : t + 1], caches, t + prefix)
+        steps.append(logits_d[:, 0])
+    return full, logits[:, 0], torch.stack(steps, dim=1)
+
+
+def layerwise(model, tokens, prompt: int, tol: float) -> dict:
+    """Decode held to the forward one layer at a time: every layer of the
+    decode step at position t takes the forward's input to that layer at t
+    (and its cache, filled the same way), so a rounding difference in one
+    layer does not carry into the next. Returns the largest allclose ratio
+    and |difference| over all layers and positions."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    cfg = model.cfg
+    B, S = tokens.shape
+    worst = {"ratio": 0.0, "max_abs_err": 0.0, "layer": None, "position": None}
+    with torch.inference_mode():
+        x = transformer.embed_tokens(cfg, model, tokens)
+        pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        caches = transformer.init_caches(cfg, B, S, device=x.device)["layers"]
+        for i, p in enumerate(model["layers"]):
+            y, _, _ = transformer._block(cfg, p, x, pos, moe=False, mode="train")
+            cache = transformer._layer_cache(caches, i)
+            _, pre, _ = transformer._block(cfg, p, x[:, :prompt], pos[:, :prompt], moe=False,
+                                           mode="prefill")
+            for k in ("k", "v"):
+                cache["attn"][k][:, :prompt] = pre["attn"][k]
+            for t in range(prompt, S):
+                y_t, _, _ = transformer._block(cfg, p, x[:, t : t + 1], pos[:, t : t + 1],
+                                               moe=False, mode="decode", cache=cache, cache_pos=t)
+                ratio = allclose_ratio(y[:, t], y_t[:, 0], tol)
+                if ratio > worst["ratio"]:
+                    worst = {"ratio": ratio, "layer": i, "position": t,
+                             "max_abs_err": float((y_t[:, 0] - y[:, t]).abs().max())}
+            x = y
+    return worst
+
+
+def smoke_families(seed: int) -> list:
+    """The seven other decoder configs at smoke width on the card: prefill
+    plus decode against the full forward in bf16, and the card against the
+    same module on the host (which tests/test_torch_models.py holds to the
+    JAX package), in bf16 (reported: the hybrid's SSM branch, normalized
+    after a small output, turns the two devices' roundings into up to
+    0.23 of a logit) and in fp64 (fatal)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import build_model
+
+    rows = []
+    for i, arch in enumerate(SMOKE_FAMILIES):
+        cfg = smoke_config(get_config(arch))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 50 + i)
+        card = build_model(cfg, device="cuda").init(gen)
+        host = build_model(cfg, device="cpu")
+        host.load_state_dict(card.state_dict())
+        rng = np.random.default_rng(seed + 50 + i)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32), dtype=np.int64))
+        extra = {}
+        if cfg.family == "vlm":
+            extra["patches"] = torch.from_numpy(rng.normal(
+                size=(2, cfg.vision_tokens, cfg.d_model)).astype(np.float32)).bfloat16()
+        off_card = [n for n, p in card.named_parameters() if p.device.type != "cuda"]
+
+        def both():
+            t0 = time.perf_counter()
+            on_card = teacher_forced(card, tokens.cuda(), 24,
+                                     {k: v.to(device="cuda", dtype=card.cfg.dtype)
+                                      for k, v in extra.items()})
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            on_host = teacher_forced(host, tokens, 24,
+                                     {k: v.to(host.cfg.dtype) for k, v in extra.items()})
+            return on_card, on_host, card_s
+
+        on_card, on_host, card_s = both()
+        full, pre, dec = on_card
+        decode_tol = SMOKE_MLA_DECODE_TOL if cfg.use_mla else SMOKE_TOL
+        row = {
+            "arch": cfg.name, "card_s": card_s, "off_card": off_card,
+            "prefill_vs_forward": allclose_ratio(full[:, 23], pre, SMOKE_TOL),
+            "decode_vs_forward": allclose_ratio(full[:, 24:], dec, decode_tol),
+            "decode_tol": decode_tol,
+            "card_vs_host_bf16": max(allclose_ratio(h, c, SMOKE_TOL)
+                                     for c, h in zip(on_card, on_host)),
+            "max_abs_card_vs_host_bf16": max(float((c.float().cpu() - h.float()).abs().max())
+                                             for c, h in zip(on_card, on_host)),
+        }
+        for m in (card, host):
+            m.to(torch.float64)
+            m.cfg = dataclasses.replace(cfg, dtype=torch.float64)
+        on_card, on_host, _ = both()
+        row["card_vs_host_fp64"] = max(allclose_ratio(h, c, SMOKE_TOL)
+                                       for c, h in zip(on_card, on_host))
+        row["max_abs_card_vs_host_fp64"] = max(float((c.cpu() - h).abs().max())
+                                               for c, h in zip(on_card, on_host))
+        row["ok"] = (max(row["prefill_vs_forward"], row["decode_vs_forward"],
+                         row["card_vs_host_fp64"]) <= 1 and not off_card)
+        rows.append(row)
+        del card, host
+    return rows
+
+
+def serve_path(seed: int, card: str):
+    """Phase 10: granite-3-2b at full width serves 4 prompts of 512 tokens
+    for 64 greedy tokens on the card, and after each decode step every
+    sequence reads 512 bytes of a gzip shard through an
+    ArchiveServer(device="cuda") (examples/serve_batched.py's traffic); then
+    the other decoder families at smoke width."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import crc32 as kc
+    from repro_torch.kernels import marker_replace as mr
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serve import make_serve_steps, prefill_to_decode_caches
+    from repro_torch.service import ArchiveServer, IndexStore
+
+    cfg = get_config(SERVE_ARCH)
+    B, P, N = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    max_len = P + N + SERVE_QUIET + SERVE_PROFILED
+    t0_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 40)
+    model = build_model(cfg, device="cuda").init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()  # the init draws in fp32, a stack at a time
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    off_card = [n for n, p in model.named_parameters() if p.device.type != "cuda"]
+    if off_card:
+        raise AssertionError("model tensors off the card: %s" % off_card[:8])
+    if n_params != cfg.param_count():
+        raise AssertionError("%d parameters, param_count() says %d" % (n_params, cfg.param_count()))
+    log("serve path [%s]: %s at full width (%d layers, d_model %d, %d heads, %d KV heads, d_ff "
+        "%d, vocab %d, tied embeddings %s, %s): %d parameters (param_count() %d), %d bytes, "
+        "drawn on the card in %.3f s" % (card, cfg.name, cfg.n_layers, cfg.d_model, cfg.n_heads,
+                                          cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size,
+                                          cfg.tie_embeddings, cfg.dtype, n_params,
+                                          cfg.param_count(), param_bytes, init_s))
+
+    corpora = [base64_corpus(seed + 41 + i, SERVE_SHARD_MIB << 20) for i in range(SERVE_SHARDS)]
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="serve-", dir=ROOT / "build"))
+    prompts = torch.from_numpy(np.random.default_rng(seed + 40).integers(
+        0, cfg.vocab_size, (B, P), dtype=np.int64)).cuda()
+    prefill_fn, decode_fn, caches_abstract = make_serve_steps(model, batch=B, max_len=max_len)
+    server = None
+    try:
+        paths = []
+        for i, c in enumerate(corpora):
+            paths.append(work / ("corpus-%02d.txt.gz" % i))
+            paths[-1].write_bytes(gzip.compress(c, 6, mtime=0))
+        server = ArchiveServer(max_workers=4, cache_budget_bytes=8 << 20,
+                               index_store=IndexStore(str(work / "indexes")),
+                               chunk_size=256 << 10, device="cuda")
+        handles = [server.open(str(p), tenant="serve") for p in paths]
+        engine = server.device_engine
+        if not server._owns_engine or engine.device.type != "cuda":  # noqa: SLF001
+            raise AssertionError("the server does not own a CUDA engine")
+        read = {"n": 0, "bytes": 0, "s": 0.0}
+
+        def retrieve(tok_host, t):
+            for b in range(B):  # examples/serve_batched.py:112-115
+                shard = (b + t) % len(handles)
+                off = int(tok_host[b, 0]) * 1009 % max(1, len(corpora[shard]) - SERVE_READ)
+                t1 = time.perf_counter()
+                data = server.read_range(handles[shard], off, SERVE_READ)
+                read["s"] += time.perf_counter() - t1
+                if data != corpora[shard][off : off + SERVE_READ]:
+                    raise AssertionError("read_range(%d, %d) of shard %d differs"
+                                         % (off, SERVE_READ, shard))
+                read["n"] += 1
+                read["bytes"] += len(data)
+
+        # One prefill first: cuBLAS and the allocator warm up outside the
+        # timed and counted run.
+        t0 = time.perf_counter()
+        prefill_fn({"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_first_ms = (time.perf_counter() - t0) * 1e3
+
+        mr.reset_launches()
+        kc.reset_launches()
+        t0 = time.perf_counter()
+        logits, pc = prefill_fn({"tokens": prompts})
+        caches = prefill_to_decode_caches(cfg, model, pc, B, max_len, P)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        del pc
+        prefill_logits = logits[:, 0]
+        fed, step_logits, step_ms = [tok], [], []
+        t_loop = time.perf_counter()
+        for t in range(N):
+            t1 = time.perf_counter()
+            tok, logits_d, caches = decode_fn(tok, caches, P + t)
+            tok_host = tok.cpu().numpy()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            step_logits.append(logits_d[:, 0])
+            fed.append(tok)
+            retrieve(tok_host, t)
+        loop_s = time.perf_counter() - t_loop
+        reads_in_loop = dict(read)
+
+        # Decode steps with no read beside them: what the reads' host work
+        # (stage 1 in the server's threads) costs the steps.
+        quiet_ms = []
+        for t in range(N, N + SERVE_QUIET):
+            t1 = time.perf_counter()
+            tok, _, caches = decode_fn(tok, caches, P + t)
+            tok.cpu()
+            quiet_ms.append((time.perf_counter() - t1) * 1e3)
+
+        # The device's idle share over more decode steps, reads included.
+        prof_ms = []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t_prof = time.perf_counter()
+            for t in range(N + SERVE_QUIET, N + SERVE_QUIET + SERVE_PROFILED):
+                t1 = time.perf_counter()
+                tok, _, caches = decode_fn(tok, caches, P + t)
+                tok_host = tok.cpu().numpy()
+                prof_ms.append((time.perf_counter() - t1) * 1e3)
+                retrieve(tok_host, t)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t_prof
+        launches = {"marker_replace": mr.launches, "crc32": kc.launches}
+        device_ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                             for e in prof.key_averages() if e.self_device_time_total > 0),
+                            key=lambda e: -e[1])
+        busy_ms = sum(e[1] for e in device_ops)
+        stats = engine.stats()
+        cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(caches))
+        abstract_ok = [tuple(a.shape) for a in tree_leaves(caches_abstract)] == \
+            [tuple(c.shape) for c in tree_leaves(caches)]
+    finally:
+        if server is not None:
+            server.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()  # the served run's
+    if stats["errors"] or stats["fallbacks"] != {"replace": 0, "crc": 0}:
+        raise AssertionError("the server's engine erred or fell back: errors %d, fallbacks %s"
+                             % (stats["errors"], stats["fallbacks"]))
+    if min(launches.values()) < 1:
+        raise AssertionError("a kernel never launched on the serve path: %s" % launches)
+    if not abstract_ok:
+        raise AssertionError("the decode caches differ from make_serve_steps' caches_abstract")
+
+    # Consistency: the decode logits against the train-mode forward of the
+    # same 576 tokens (the prompts and the 64 tokens fed back). The JAX
+    # package's init draws wq/wk/wv with fan_in = shape[-2], the head count,
+    # so at this width attention scores have a std near 64 and attention is
+    # nearly hard: a rounding difference between the 1-row decode products
+    # and the 576-row forward flips which keys win, and the flip carries on
+    # through every later layer (the JAX package's own decode misses this
+    # bound at 8 layers of this width, bf16 and fp32 alike). So the logits
+    # are measured and reported end to end (the served bf16 run, its first
+    # 1-8 layers, the whole model in fp32 and fp64), and what tells a fault
+    # from rounding is fatal: every layer of every decode step against the
+    # forward one layer at a time, in fp64 (reported in bf16 too).
+    served_s = time.perf_counter() - t0_phase
+    seq = torch.cat([prompts] + [t.long() for t in fed[:N]], dim=1)
+    with torch.inference_mode():
+        from repro_torch.models import transformer
+
+        full = transformer.forward(cfg, model, seq, mode="train")[0]
+
+    def agreement(full, pre, dec):
+        return {"max_abs_err": float((dec.float() - full[:, P:].float()).abs().max()),
+                "ratio": allclose_ratio(full[:, P:], dec, SERVE_TOL),
+                "prefill_ratio": allclose_ratio(full[:, P - 1], pre, SERVE_TOL),
+                "finite": bool(torch.isfinite(dec.float()).all()
+                               and torch.isfinite(full.float()).all())}
+
+    consistency = {"bf16, %d layers (served)" % cfg.n_layers:
+                   agreement(full, prefill_logits, torch.stack(step_logits, dim=1))}
+    del full, step_logits, caches
+    for depth in (d for d in SERVE_DEPTHS if d < cfg.n_layers):  # the first layers, same weights
+        shallow = build_model(dataclasses.replace(cfg, n_layers=depth), device="cuda")
+        keep = shallow.state_dict().keys()
+        shallow.load_state_dict({k: v for k, v in model.state_dict().items() if k in keep})
+        consistency["bf16, %d layers" % depth] = agreement(*teacher_forced(shallow, seq, P))
+        del shallow
+    layer_by_layer = {"bf16": layerwise(model, seq, P, SERVE_TOL)}
+    for dtype, name in ((torch.float32, "fp32"), (torch.float64, "fp64")):
+        model.to(dtype)
+        model.cfg = dataclasses.replace(cfg, dtype=dtype)
+        consistency["%s, %d layers" % (name, cfg.n_layers)] = agreement(
+            *teacher_forced(model, seq, P))
+    layer_by_layer["fp64"] = layerwise(model, seq, P, SERVE_TOL)
+    log("serve path [%s]: decode logits against the forward at rtol = atol = %g: %s; each layer "
+        "against the forward's, fed the forward's input: %s"
+        % (card, SERVE_TOL, json.dumps(consistency), json.dumps(layer_by_layer)))
+    ok = layer_by_layer["fp64"]["ratio"] <= 1 and all(c["finite"] for c in consistency.values())
+    del model
+    torch.cuda.empty_cache()
+    checks_s = time.perf_counter() - t0_phase - served_s
+    t1 = time.perf_counter()
+    families = smoke_families(seed)
+    families_s = time.perf_counter() - t1
+    result = {
+        "card": card, "arch": cfg.name, "params": n_params, "param_bytes": param_bytes,
+        "param_count": cfg.param_count(), "init_s": init_s, "batch": B, "prompt": P,
+        "new_tokens": N, "max_len": max_len, "cache_bytes": cache_bytes,
+        "prefill_ms": prefill_ms, "prefill_first_ms": prefill_first_ms,
+        "decode_ms": {"p50": float(np.percentile(step_ms, 50)),
+                      "p99": float(np.percentile(step_ms, 99)),
+                      "mean": float(np.mean(step_ms)), "steps": step_ms},
+        "decode_tokens_per_s": B * N / (sum(step_ms) / 1e3),
+        "quiet_ms": {"p50": float(np.percentile(quiet_ms, 50)), "steps": quiet_ms},
+        "loop_s": loop_s, "loop_tokens_per_s": B * N / loop_s,
+        "reads": reads_in_loop, "reads_all": read,
+        "profiled": {"steps": SERVE_PROFILED, "wall_s": prof_s, "device_busy_ms": busy_ms,
+                     "device_idle_share": 1 - busy_ms / (prof_s * 1e3) if busy_ms else None,
+                     "step_ms_p50": float(np.percentile(prof_ms, 50)),
+                     "device_ops": [{"name": k, "ms": ms, "count": c}
+                                    for k, ms, c in device_ops[:12]],
+                     "device_op_count": sum(e[2] for e in device_ops)},
+        "max_memory_allocated": peak, "init_max_memory_allocated": init_peak,
+        "consistency": consistency,
+        "layer_by_layer": layer_by_layer,
+        "engine": {k: stats[k] for k in ("requests", "batches", "dispatches", "fallbacks",
+                                         "errors")},
+        "launches": launches, "families": families,
+        "seconds": {"served": served_s, "consistency": checks_s, "families": families_s},
+    }
+    if not ok:
+        raise AssertionError("decode differs from the forward at rtol = atol = %g layer by layer "
+                             "in fp64, or a logit is not finite: %s %s"
+                             % (SERVE_TOL, json.dumps(layer_by_layer), json.dumps(consistency)))
+    bad = [f for f in families if not f["ok"]]
+    if bad:
+        raise AssertionError("smoke-width families failed on the card: %s" % json.dumps(bad))
+    return result
+
+
+def log_serve(serve: dict, card: str) -> None:
+    d, prof, rd = serve["decode_ms"], serve["profiled"], serve["reads"]
+    log("serve path [%s]: %s, %d prompts of %d tokens, %d greedy steps: prefill %.3f ms (first "
+        "call %.3f); decode "
+        "ms per step p50 %.3f p99 %.3f (%.1f tokens/s; %.1f tokens/s with the reads; p50 %.3f "
+        "with no reads beside the steps); reads %d "
+        "of %d bytes in %.3f s; max_memory_allocated %d (%d while drawing the weights); KV "
+        "caches %d bytes"
+        % (card, serve["arch"], serve["batch"], serve["prompt"], serve["new_tokens"],
+           serve["prefill_ms"], serve["prefill_first_ms"], d["p50"], d["p99"],
+           serve["decode_tokens_per_s"], serve["loop_tokens_per_s"], serve["quiet_ms"]["p50"],
+           rd["n"], rd["bytes"], rd["s"],
+           serve["max_memory_allocated"], serve["init_max_memory_allocated"],
+           serve["cache_bytes"]))
+    log("serve path [%s]: %d profiled steps in %.3f s (step p50 %.3f ms), device busy %.3f ms "
+        "over %d device ops (idle share %s); top ops %s"
+        % (card, prof["steps"], prof["wall_s"],
+           prof["step_ms_p50"], prof["device_busy_ms"], prof["device_op_count"],
+           prof["device_idle_share"], json.dumps(prof["device_ops"][:6])))
+    log("serve path [%s]: engine %s; launches %s; seconds %s"
+        % (card, json.dumps(serve["engine"]), json.dumps(serve["launches"]),
+           json.dumps(serve["seconds"])))
+    for row in serve["families"]:
+        log("serve path [%s]: smoke width %s" % (card, json.dumps(row)))
+
+
 def log_fleet(fleet: dict, card: str) -> None:
     log("fleet path [%s]: %d peers, a %d-byte archive (gzip %d); open on the owner (its first "
         "pass) %.3f s; stream MB/s %.3f before the kill, %.3f after it (%.3f from the first "
@@ -1317,6 +1766,10 @@ def main() -> int:
                              % pipeline["launches"])
     log_pipeline(pipeline, card)
 
+    with shared_engine_untouched():
+        serve = serve_path(args.seed, card)
+    log_serve(serve, card)
+
     sources = {
         "marker_replace": ("src/repro_torch/kernels/csrc/marker_replace.cu",
                            "src/repro/kernels/marker_replace.py:101"),
@@ -1330,7 +1783,8 @@ def main() -> int:
     # And every path's launches, each counted from 0 (the precheck runs on
     # the ops path only).
     by_path = {"main": path["launches"], "ops": ops["launches"], "service": service["launches"],
-               "fleet": fleet["launches"], "pipeline": pipeline["launches"]}
+               "fleet": fleet["launches"], "pipeline": pipeline["launches"],
+               "serve": serve["launches"]}
     checked = rows + at_path + precode_rows
     kernels = []
     for row in at_path:
@@ -1349,7 +1803,7 @@ def main() -> int:
             "card": card, "build_s": build_s, "launch_floor_ms": floor_ms, "kernel_rows": rows,
             "at_path": at_path, "main_path": path, "precode_rows": precode_rows, "ops_path": ops,
             "service_path": service, "fleet_path": fleet, "pipeline_path": pipeline,
-            "kernels": kernels,
+            "serve_path": serve, "kernels": kernels,
         }, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,440 @@
+"""Foundational layers for the decoder families, on PyTorch.
+
+The counterpart of ``repro.models.layers``. Parameters are declared by
+trees of ``ParamDef`` (nested dicts, the same shapes, logical axes and
+initializers as the JAX package) and held by ``ParamTree`` modules, one
+``nn.Parameter`` per declaration, read as ``params["attn"]["wq"]`` like the
+JAX package's dicts. The layer functions are plain tensor arithmetic that
+mirrors the JAX math: bf16 products, fp32 norm statistics, RoPE and
+softmax, attention scores accumulated in fp32 (``preferred_element_type``)
+and probabilities cast to the value dtype before P.V.
+
+Decode updates caches in place (the counterpart of the JAX serve step's
+donated caches): a cache passed in is the per-layer view of the stacked
+cache, and the returned dict holds the same tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Params = Any  # a ParamTree, or a nested dict of tensors
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
+    init: str = "normal"  # normal | zeros | ones
+    scale: Optional[float] = None
+    dtype: Any = torch.bfloat16
+
+    def initialize(self, generator: torch.Generator, device) -> torch.Tensor:
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=self.dtype, device=device)
+        fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+        scale = self.scale if self.scale is not None else 1.0 / math.sqrt(max(1, fan_in))
+        draw = torch.randn(self.shape, generator=generator, dtype=torch.float32, device=device)
+        return (draw * scale).to(self.dtype)
+
+    def abstract(self) -> torch.Tensor:
+        return torch.empty(self.shape, dtype=self.dtype, device="meta")
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` over the leaves of a nested dict (dict keys in sorted order,
+    as ``jax.tree`` flattens them)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    return [leaf for _, leaf in leaf_paths(tree)]
+
+
+def abstract_tree(defs) -> Params:
+    return tree_map(lambda d: d.abstract(), defs)
+
+
+def logical_tree(defs):
+    return tree_map(lambda d: d.logical, defs)
+
+
+def stack_defs(defs, n: int):
+    """The declarations of ``n`` stacked layers: a leading ``[n]`` dim."""
+    return tree_map(
+        lambda d: ParamDef((n,) + d.shape, (None,) + d.logical, d.init, d.scale, d.dtype), defs
+    )
+
+
+def unstack_defs(defs, n: int):
+    """The one-layer declarations of a stack declared ``[n, ...]``."""
+    def one(d: ParamDef) -> ParamDef:
+        assert d.shape[0] == n, (d.shape, n)
+        return ParamDef(d.shape[1:], d.logical[1:], d.init, d.scale, d.dtype)
+
+    return tree_map(one, defs)
+
+
+class ParamTree(nn.Module):
+    """The parameters a tree of ``ParamDef`` declares, allocated (not yet
+    initialized) on ``device``: a leaf becomes an ``nn.Parameter``, a nested
+    dict a child ``ParamTree``, and each key in ``stacked`` (declared
+    ``[L, ...]``, as the JAX package stacks its layers) an ``nn.ModuleList``
+    of ``L`` one-layer trees. ``tree[key]`` reads like the JAX dicts."""
+
+    def __init__(self, defs: Dict[str, Any], device, stacked: Tuple[str, ...] = ()):
+        super().__init__()
+        self._keys = sorted(defs)
+        for k in self._keys:
+            d = defs[k]
+            if k in stacked:
+                n = tree_leaves(d)[0].shape[0]
+                self.add_module(k, nn.ModuleList(
+                    ParamTree(unstack_defs(d, n), device) for _ in range(n)))
+            elif isinstance(d, dict):
+                self.add_module(k, ParamTree(d, device))
+            else:
+                self.register_parameter(k, nn.Parameter(
+                    torch.empty(d.shape, dtype=d.dtype, device=device), requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._keys
+
+    def get(self, path: Tuple[str, ...]):
+        node = self
+        for k in path:
+            node = node[k]
+        return node
+
+    @torch.no_grad()
+    def assign(self, defs, value: Callable[[ParamDef, Tuple[str, ...]], torch.Tensor]) -> None:
+        """Fill every parameter from ``value(def, path)``, one declaration of
+        ``defs`` (those this tree was built from) at a time in sorted key
+        order; a stack's value is ``[L, ...]`` and layer ``i`` takes slice
+        ``i``."""
+        for path, d in leaf_paths(defs):
+            t = value(d, path)
+            head = self[path[0]]
+            if isinstance(head, nn.ModuleList):
+                for i, layer in enumerate(head):
+                    layer.get(path[1:]).copy_(t[i])
+            else:
+                self.get(path).copy_(t)
+
+
+def leaf_paths(tree, prefix: Tuple[str, ...] = ()):
+    """(key path, leaf) pairs of a nested dict, in sorted key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaf_paths(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+# ---------------------------------------------------------------------------
+# norms / embeddings / rope
+# ---------------------------------------------------------------------------
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the precision statistics and attention scores take: fp32,
+    or fp64 for a model cast to fp64 (where decode and the forward must
+    agree to fp64 rounding)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = at_least_fp32(x)
+    var = xf.square().mean(-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * (1.0 + at_least_fp32(weight))).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(rope_frequencies(head_dim, theta), np.float32)).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Half-rotation RoPE in fp32 (fp64 for an fp64 model). x: [..., S, H,
+    Dh]; positions: [..., S]."""
+    xf = at_least_fp32(x)
+    freqs = _rope_freqs(x.shape[-1], float(theta), x.device).to(xf.dtype)
+    angles = positions[..., :, None].to(xf.dtype) * freqs  # [..., S, Dh/2]
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = xf.chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# activations / MLP
+# ---------------------------------------------------------------------------
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x), sigmoid as 1 / (1 + exp(-x)), each
+    operation rounded to x's dtype as the JAX package computes it."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` in x's dtype, operation by
+    operation, its constants rounded to that dtype first."""
+    c = torch.tensor(0.044715, dtype=x.dtype)
+    k = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+    cdf = 0.5 * (1 + torch.tanh(k * (x + c * (x * x * x))))
+    return x * cdf
+
+
+def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name == "silu":
+        return silu
+    if name == "gelu":
+        return gelu_tanh
+    if name == "relu":
+        return F.relu
+    raise ValueError(name)
+
+
+def gated_mlp_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
+    return {
+        "w_gate": ParamDef((d_model, d_ff), ("embed", "ffn")),
+        "w_up": ParamDef((d_model, d_ff), ("embed", "ffn")),
+        "w_down": ParamDef((d_ff, d_model), ("ffn", "embed")),
+    }
+
+
+def gated_mlp(params: Params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+    a = act_fn(activation)
+    gate = torch.einsum("...sd,df->...sf", x, params["w_gate"])
+    up = torch.einsum("...sd,df->...sf", x, params["w_up"])
+    return torch.einsum("...sf,fd->...sd", a(gate) * up, params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def gqa_defs(
+    d_model: int,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    *,
+    qkv_bias: bool = False,
+) -> Dict[str, ParamDef]:
+    defs: Dict[str, ParamDef] = {
+        "wq": ParamDef((d_model, n_heads, head_dim), ("embed", "heads", "head_dim")),
+        "wk": ParamDef((d_model, n_kv_heads, head_dim), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((d_model, n_kv_heads, head_dim), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((n_heads, head_dim, d_model), ("heads", "head_dim", "embed")),
+    }
+    if qkv_bias:
+        defs["bq"] = ParamDef((n_heads, head_dim), ("heads", "head_dim"), init="zeros")
+        defs["bk"] = ParamDef((n_kv_heads, head_dim), ("kv_heads", "head_dim"), init="zeros")
+        defs["bv"] = ParamDef((n_kv_heads, head_dim), ("kv_heads", "head_dim"), init="zeros")
+    return defs
+
+
+def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: [B,Sq,K,G,Dh], k: [B,Skv,K,Dh] -> [B,K,G,Sq,Skv], bf16 products
+    accumulated in fp32."""
+    return torch.einsum("bqkgd,bskd->bkgqs", at_least_fp32(q), at_least_fp32(k))
+
+
+def _grouped_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p: [B,K,G,Sq,Skv], v: [B,Skv,K,Dh] -> [B,Sq,K,G,Dh]."""
+    return torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+
+
+def causal_attention(
+    q: torch.Tensor,  # [B, Sq, H, Dh]
+    k: torch.Tensor,  # [B, Skv, Kv, Dh]
+    v: torch.Tensor,  # [B, Skv, Kv, Dv]
+    *,
+    q_offset: int = 0,
+    kv_len: Optional[torch.Tensor] = None,  # valid cache length per batch [B]
+    sliding_window: Optional[int] = None,
+    q_chunk: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Grouped-query attention with optional q-chunking: each q-block
+    attends only to the kv prefix it can see (``kv_hi``), so no work is
+    spent on fully masked blocks."""
+    b, sq, h, dh = q.shape
+    kv_heads = k.shape[2]
+    dv = v.shape[-1]  # may differ from dh (MLA: qk_dim != v_head_dim)
+    assert h % kv_heads == 0, (h, kv_heads)
+    g = h // kv_heads
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, sq, kv_heads, g, dh)
+    dev = q.device
+
+    def block(q_blk, blk_offset, kv_hi):
+        """q_blk: [B, C, K, G, Dh] attending to k[:, :kv_hi]."""
+        kk = k[:, :kv_hi]
+        vv = v[:, :kv_hi]
+        scores = _grouped_scores(q_blk, kk) * scale  # [B,K,G,C,kv_hi]
+        q_pos = blk_offset + torch.arange(q_blk.shape[1], device=dev)[:, None] + q_offset
+        kv_pos = torch.arange(kv_hi, device=dev)[None, :]
+        mask = torch.ones((q_blk.shape[1], kv_hi), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kv_pos <= q_pos
+        if sliding_window is not None:
+            mask &= kv_pos > q_pos - sliding_window
+        if kv_len is not None:
+            mask = mask[None] & (kv_pos[None] < kv_len[:, None, None])
+            scores = torch.where(mask[:, None, None], scores, -1e30)
+        else:
+            scores = torch.where(mask[None, None, None], scores, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        return _grouped_values(probs, vv)
+
+    if q_chunk is None or q_chunk >= sq or not causal:
+        out = block(qg, 0, k.shape[1])
+        return out.reshape(b, sq, h, dv)
+
+    n_blocks = -(-sq // q_chunk)
+    outs = []
+    for i in range(n_blocks):
+        lo = i * q_chunk
+        hi = min(sq, lo + q_chunk)
+        kv_hi = min(k.shape[1], q_offset + hi)
+        outs.append(block(qg[:, lo:hi], lo, kv_hi))
+    return torch.cat(outs, dim=1).reshape(b, sq, h, dv)
+
+
+def ring_attention_decode(
+    q: torch.Tensor,  # [B, 1, H, Dh]
+    cache: Dict[str, torch.Tensor],  # k/v [B, W, Kv, Dh] + pos [W] int32 (-1 empty)
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    position: int,  # absolute position of the new token
+    *,
+    sliding_window: int,
+    softmax_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Sliding-window decode against a ring buffer of size W, updated in
+    place: slot ``p % W`` holds position ``p``, and the per-slot position
+    array masks empty and out-of-window entries (keys were rotated before
+    insertion, so absolute RoPE stays right)."""
+    b, _, h, dh = q.shape
+    k_cache, v_cache, pos = cache["k"], cache["v"], cache["pos"]
+    W = k_cache.shape[1]
+    slot = position % W
+    k_cache[:, slot] = k_new[:, 0]
+    v_cache[:, slot] = v_new[:, 0]
+    pos[slot] = position
+    kv_heads = k_cache.shape[2]
+    g = h // kv_heads
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
+    scores = _grouped_scores(q.reshape(b, 1, kv_heads, g, dh), k_cache) * scale
+    valid = (pos >= 0) & (pos <= position) & (pos > position - sliding_window)
+    scores = torch.where(valid[None, None, None, None, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = _grouped_values(probs, v_cache).reshape(b, 1, h, dh)
+    return out, cache
+
+
+def gqa_attention_block(
+    params: Params,
+    x: torch.Tensor,  # [B, S, D]
+    positions: torch.Tensor,  # [B, S]
+    *,
+    rope_theta: float = 10000.0,
+    mode: str = "train",  # train | prefill | decode
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_pos: Optional[int] = None,
+    sliding_window: Optional[int] = None,
+    q_chunk: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+    causal: bool = True,
+    use_rope: bool = True,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """GQA attention with rope; returns (y, cache_out).
+
+    * train:   cache_out is None.
+    * prefill: cache_out = {"k","v"} post-rope full-sequence tensors.
+    * decode:  cache is required and S must be 1; the cache is written in
+               place (linear caches at ``cache_pos``, sliding-window ring
+               buffers at ``cache_pos % W``) and returned.
+    """
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+
+    if mode == "decode":
+        assert cache is not None and cache_pos is not None and x.shape[1] == 1
+        if "pos" in cache:  # ring buffer (sliding window)
+            out, new_cache = ring_attention_decode(
+                q, cache, k, v, cache_pos,
+                sliding_window=sliding_window or cache["k"].shape[1],
+                softmax_scale=softmax_scale,
+            )
+        else:
+            cache["k"][:, cache_pos] = k[:, 0]
+            cache["v"][:, cache_pos] = v[:, 0]
+            new_cache = cache
+            kv_len = torch.full((x.shape[0],), cache_pos + 1, dtype=torch.int32, device=x.device)
+            out = causal_attention(
+                q, cache["k"], cache["v"],
+                q_offset=cache_pos, kv_len=kv_len,
+                sliding_window=sliding_window,
+                softmax_scale=softmax_scale, causal=causal,
+            )
+    else:
+        out = causal_attention(
+            q, k, v,
+            sliding_window=sliding_window, q_chunk=q_chunk,
+            softmax_scale=softmax_scale, causal=causal,
+        )
+        new_cache = {"k": k, "v": v} if mode == "prefill" else None
+
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return y, new_cache
+
+
+def init_kv_cache(
+    batch: int,
+    max_len: int,
+    n_kv_heads: int,
+    head_dim: int,
+    dtype=torch.bfloat16,
+    *,
+    ring: bool = False,
+    device="cpu",
+):
+    cache = {
+        "k": torch.zeros((batch, max_len, n_kv_heads, head_dim), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_len, n_kv_heads, head_dim), dtype=dtype, device=device),
+    }
+    if ring:
+        cache["pos"] = torch.full((max_len,), -1, dtype=torch.int32, device=device)
+    return cache

@@ -375,3 +375,65 @@ def test_one_shard_pipeline_on_the_card_matches_cpu(cuda, rng):
     assert len(got["cuda"]) == len(got["cpu"]) > 0
     for a, b in zip(got["cuda"], got["cpu"]):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the model half: decoders on the card against the same module on the host
+# ---------------------------------------------------------------------------
+
+def _card_and_host(arch, cuda):
+    from repro_torch.configs import all_configs, smoke_config
+    from repro_torch.models import build_model
+
+    cfg = smoke_config(all_configs()[arch])
+    card = build_model(cfg, device=cuda).init(torch.Generator(device=cuda).manual_seed(0))
+    host = build_model(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    return cfg, card, host
+
+
+def _serve(model, tokens, prompt):
+    """Forward logits, then prefill plus decode of the remaining tokens."""
+    from repro_torch.models import transformer
+    from repro_torch.serve import make_serve_steps, prefill_to_decode_caches
+
+    B, S = tokens.shape
+    with torch.inference_mode():
+        full = transformer.forward(model.cfg, model, tokens, mode="train")[0]
+    prefill_fn, decode_fn, _ = make_serve_steps(model, batch=B, max_len=S)
+    logits, pc = prefill_fn({"tokens": tokens[:, :prompt]})
+    caches = prefill_to_decode_caches(model.cfg, model, pc, B, S, prompt)
+    steps = [logits[:, 0]]
+    for t in range(prompt, S):
+        _, logits_d, caches = decode_fn(tokens[:, t : t + 1], caches, t)
+        steps.append(logits_d[:, 0])
+    return full, torch.stack(steps, dim=1)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-moe-16b"])
+def test_decoder_on_the_card_matches_the_host(cuda, arch):
+    """A dense and a MoE config at smoke width: the card's forward and
+    serve-step logits against the same weights on the host (which the CPU
+    tests hold to the JAX package), and decode against the forward, all at
+    rtol = atol = 5e-2 (cuBLAS and the host's bf16 products sum in other
+    orders)."""
+    cfg, card, host = _card_and_host(arch, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 30), generator=torch.Generator().manual_seed(1))
+    full_c, served_c = _serve(card, tokens.to(cuda), 24)
+    full_h, served_h = _serve(host, tokens, 24)
+    assert full_c.device.type == "cuda" and served_c.device.type == "cuda"
+    torch.testing.assert_close(full_c.float().cpu(), full_h.float(), rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(served_c.float().cpu(), served_h.float(), rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(served_c.float(), full_c[:, 23:].float(), rtol=5e-2, atol=5e-2)
+
+
+def test_build_model_allocates_on_the_card_by_default(cuda):
+    from repro_torch.configs import all_configs, smoke_config
+    from repro_torch.models import build_model
+
+    model = build_model(smoke_config(all_configs()["hymba-1.5b"]))
+    assert model.device.type == "cuda"
+    assert all(p.device.type == "cuda" for p in model.parameters())
+    caches = model.init_decode_caches(2, 96)
+    assert caches["layers"]["attn"]["pos"].device.type == "cuda"
+    assert caches["layers"]["ssm"]["h"].device.type == "cuda"

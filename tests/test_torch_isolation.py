@@ -35,6 +35,10 @@ VERBATIM = [
     "service/fleet/client.py", "service/fleet/exchange.py",
     "service/fleet/membership.py", "service/fleet/router.py",
     "data/__init__.py", "data/tokenizer.py",
+    "configs/__init__.py", "configs/deepseek_moe_16b.py", "configs/deepseek_v2_236b.py",
+    "configs/gemma_2b.py", "configs/granite_3_2b.py", "configs/hymba_1_5b.py",
+    "configs/internlm2_20b.py", "configs/internvl2_76b.py", "configs/qwen2_5_32b.py",
+    "configs/whisper_tiny.py", "configs/xlstm_350m.py",
 ]
 
 
