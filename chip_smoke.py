@@ -82,11 +82,37 @@ Phases, each fatal on failure:
      the flip carries through every later layer). Fatal: each layer of
      each decode step against the forward's, fed the forward's input to
      that layer, in fp64 (reported in bf16). Then the seven other decoder
-     configs at smoke width: prefill plus decode against the forward in
-     bf16, and the card against the same module on the host in bf16
-     (reported) and fp64 (fatal). Fatal: a byte differs, the engine fell
-     back or erred, a kernel did not launch in the phase, a model tensor
-     lies off the card, shared_engine was reached, or a check misses;
+     configs, xlstm-350m and whisper-tiny at smoke width: prefill plus
+     decode against the forward in bf16, and the card against the same
+     module on the host in bf16 (reported) and fp64 (fatal). Fatal: a byte
+     differs, the engine fell back or erred, a kernel did not launch in the
+     phase, a model tensor lies off the card, shared_engine was reached, or
+     a check misses. Then xlstm-350m (24 blocks, d_model 1024, vocab
+     50 304; --seed + 60) and whisper-tiny (4 + 4 layers, d_model 384,
+     1 500 stub frames from the seed, vocab 51 865; --seed + 61) at full
+     width: 4 prompts (512 tokens; 64 for Whisper) prefilled, 32 greedy
+     decode steps, the decode logits against the teacher-forced forward in
+     bf16 (reported; the xLSTM's first step also against the prefill of
+     the longer prefix), and in fp64 each xLSTM block's recurrent steps
+     against its chunkwise form and each Whisper decoder layer's decode
+     steps against its forward, fed the forward's input (fatal at rtol =
+     atol = 1e-6);
+ 11. the train path (repro_torch.launch.train.run, the driver's entry):
+     granite-3-2b at full width (40 layers, 2 533 531 648 parameters,
+     --seed + 70), batch 8 x seq 128, 12 timed steps and 2 more under
+     torch.profiler over make_corpus shards read by
+     GzipCorpusDataset(device="cuda") on the process-wide engine; then at
+     full width and 2 layers (--seed + 80): an unbroken run of 12 steps, the
+     same weights preempted after 6 (save_checkpoint), a model from another
+     seed and a new dataset restored (restore_checkpoint) for the other 6,
+     grad_accum=2 against 1 from one state, and 6 steps with compressed
+     gradients; then xlstm-350m and whisper-tiny at full width, 4 steps
+     each. Fatal: a loss not finite, a parameter, gradient or moment off
+     the card, a kernel that did not launch, the engine erred or fell back,
+     a restored leaf not bit-equal to the saved one, a batch after the
+     restore not equal to the unbroken run's, a resumed loss more than
+     1e-3 from the unbroken run's, or grad_accum=2 outside rtol 3e-2, atol
+     3e-3 of 1;
   then one JSON line of kernel results and, last, the {"ok": true, ...}
   line.
 
@@ -1210,7 +1236,8 @@ SERVE_READ = 512
 SERVE_TOL = 5e-2  # rtol = atol, decode logits against the train-mode forward
 SERVE_DEPTHS = (1, 2, 4, 8)  # first layers of the served weights, checked in bf16 too
 SMOKE_FAMILIES = ("gemma-2b", "qwen2.5-32b", "internlm2-20b", "deepseek-moe-16b",
-                  "deepseek-v2-236b", "hymba-1.5b", "internvl2-76b")
+                  "deepseek-v2-236b", "hymba-1.5b", "internvl2-76b", "xlstm-350m",
+                  "whisper-tiny")
 SMOKE_TOL = 5e-2  # card against host, and decode against the forward ...
 SMOKE_MLA_DECODE_TOL = 3e-1  # ... but MLA's absorbed decode (tests/test_torch_serve.py)
 
@@ -1218,7 +1245,10 @@ SMOKE_MLA_DECODE_TOL = 3e-1  # ... but MLA's absorbed decode (tests/test_torch_s
 def allclose_ratio(ref, got, tol: float) -> float:
     """max |got - ref| / (tol + tol |ref|): at most 1 where torch.allclose
     (rtol = atol = tol) holds."""
-    ref, got = ref.float(), got.float().to(ref.device)
+    import torch
+
+    wide = torch.float64 if torch.float64 in (ref.dtype, got.dtype) else torch.float32
+    ref, got = ref.to(wide), got.to(device=ref.device, dtype=wide)
     return float(((got - ref).abs() / (tol + tol * ref.abs())).max())
 
 
@@ -1227,7 +1257,6 @@ def teacher_forced(model, tokens, prompt: int, extra=None):
     ``prompt``, decode logits of the rest, each fed its true token)."""
     import torch
 
-    from repro_torch.models import transformer
     from repro_torch.serve import make_serve_steps, prefill_to_decode_caches
 
     cfg = model.cfg
@@ -1235,8 +1264,7 @@ def teacher_forced(model, tokens, prompt: int, extra=None):
     B, S = tokens.shape
     prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
     with torch.inference_mode():
-        full = transformer.forward(cfg, model, tokens, mode="train",
-                                   prefix_embeds=extra.get("patches"))[0][:, prefix:]
+        full = model.logits({"tokens": tokens, **extra})
     prefill_fn, decode_fn, _ = make_serve_steps(model, batch=B, max_len=S + prefix)
     logits, pc = prefill_fn({"tokens": tokens[:, :prompt], **extra})
     caches = prefill_to_decode_caches(cfg, model, pc, B, S + prefix, prompt + prefix)
@@ -1283,7 +1311,8 @@ def layerwise(model, tokens, prompt: int, tol: float) -> dict:
 
 
 def smoke_families(seed: int) -> list:
-    """The seven other decoder configs at smoke width on the card: prefill
+    """The seven other decoder configs and the xLSTM and Whisper families
+    at smoke width on the card: prefill
     plus decode against the full forward in bf16, and the card against the
     same module on the host (which tests/test_torch_models.py holds to the
     JAX package), in bf16 (reported: the hybrid's SSM branch, normalized
@@ -1311,6 +1340,9 @@ def smoke_families(seed: int) -> list:
         if cfg.family == "vlm":
             extra["patches"] = torch.from_numpy(rng.normal(
                 size=(2, cfg.vision_tokens, cfg.d_model)).astype(np.float32)).bfloat16()
+        if cfg.family == "audio":
+            extra["frames"] = torch.from_numpy(rng.normal(
+                size=(2, cfg.encoder_frames, cfg.d_model)).astype(np.float32)).bfloat16()
         off_card = [n for n, p in card.named_parameters() if p.device.type != "cuda"]
 
         def both():
@@ -1596,6 +1628,494 @@ def serve_path(seed: int, card: str):
     return result
 
 
+FAMILY_SERVE = (("xlstm-350m", 60), ("whisper-tiny", 61))  # full width, seed offsets
+FAMILY_PROMPT = {"xlstm-350m": 512, "whisper-tiny": 64}
+FAMILY_NEW = 32  # greedy decode steps
+FP64_TOL = 1e-6  # rtol = atol: a form or a layer against another, both in fp64
+
+
+def _family_blocks(model):
+    """The xLSTM's blocks in the order the forward runs them: (name, block
+    function, its parameters)."""
+    from repro_torch.models import xlstm
+
+    H = model.cfg.n_heads
+    for g, (p_m, p_s) in enumerate(zip(model["mlstm"], model["slstm"])):
+        for j in range(model.n_m):
+            yield "mlstm %d.%d" % (g, j), (lambda p, x, **kw: xlstm.mlstm_block(p, x, H, **kw)), \
+                p_m[j]
+        yield "slstm %d" % g, (lambda p, x, **kw: xlstm.slstm_block(p, x, H, **kw)), p_s
+
+
+def xlstm_forms_fp64(model, seq, prompt: int) -> dict:
+    """Each xLSTM block fed the forward's input to it, in fp64: the block
+    over the whole sequence (chunkwise) against the block over the prompt
+    (chunkwise, returning its state) and then one recurrent step per
+    position from that state. The largest allclose ratio at FP64_TOL."""
+    import torch
+
+    worst = {"ratio": -1.0, "max_abs_err": 0.0, "block": None, "position": None}
+    with torch.inference_mode():
+        x = model["embed"][seq]
+        for name, block, p in _family_blocks(model):
+            y, _ = block(p, x, return_state=True)
+            _, state = block(p, x[:, :prompt], return_state=True)
+            for t in range(prompt, seq.shape[1]):
+                y_t, state = block(p, x[:, t : t + 1], state=state)
+                ratio = allclose_ratio(y[:, t], y_t[:, 0], FP64_TOL)
+                if ratio > worst["ratio"]:
+                    worst = {"ratio": ratio, "block": name, "position": t,
+                             "max_abs_err": float((y_t[:, 0] - y[:, t]).abs().max())}
+            x = y
+    return worst
+
+
+def whisper_layers_fp64(model, seq, frames, prompt: int) -> dict:
+    """Each Whisper decoder layer fed the forward's input to it, in fp64:
+    the train-mode layer over the sequence against prefill of the prompt
+    (its self K/V and cross K/V into a decode cache) and then one decode
+    step per position. The largest allclose ratio at FP64_TOL."""
+    import torch
+
+    from repro_torch.models import encdec
+
+    cfg = model.cfg
+    B, S = seq.shape
+    worst = {"ratio": -1.0, "max_abs_err": 0.0, "layer": None, "position": None}
+    with torch.inference_mode():
+        enc = encdec.encode(cfg, model, frames)
+        pos = torch.arange(S, device=seq.device)[None, :].expand(B, S)
+        x = model["embed"][seq] + model["pos_embed"][torch.arange(S, device=seq.device)][None]
+        caches = encdec.init_decoder_caches(cfg, B, S, enc.shape[1], device=seq.device)
+        for i, p in enumerate(model["decoder"]):
+            y, _ = encdec.decoder_layer(cfg, p, x, pos, enc, mode="train")
+            _, pre = encdec.decoder_layer(cfg, p, x[:, :prompt], pos[:, :prompt], enc,
+                                          mode="prefill")
+            cache = encdec._layer_cache(caches, i)  # noqa: SLF001
+            for k in ("k", "v"):
+                cache["attn"][k][:, :prompt] = pre["attn"][k]
+            cache["cross_k"].copy_(pre["cross_k"])
+            cache["cross_v"].copy_(pre["cross_v"])
+            for t in range(prompt, S):
+                y_t, _ = encdec.decoder_layer(cfg, p, x[:, t : t + 1], pos[:, t : t + 1], None,
+                                              mode="decode", cache=cache, cache_pos=t)
+                ratio = allclose_ratio(y[:, t], y_t[:, 0], FP64_TOL)
+                if ratio > worst["ratio"]:
+                    worst = {"ratio": ratio, "layer": i, "position": t,
+                             "max_abs_err": float((y_t[:, 0] - y[:, t]).abs().max())}
+            x = y
+    return worst
+
+
+def family_serve(arch: str, seed: int, card: str) -> dict:
+    """xlstm-350m or whisper-tiny at full width on the card: 4 prompts
+    (512 tokens for the xLSTM; 1500 stub frames and 64 tokens for Whisper),
+    prefill, 32 greedy decode steps; decode logits against the
+    teacher-forced forward of the same tokens in bf16 (reported), then the
+    forms (xLSTM) or layers (Whisper) against each other in fp64 (fatal)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_serve_steps, prefill_to_decode_caches
+
+    cfg = get_config(arch)
+    B, P, N = SERVE_BATCH, FAMILY_PROMPT[arch], FAMILY_NEW
+    max_len = P + N
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    off_card = [n for n, p in model.named_parameters() if p.device.type != "cuda"]
+    if off_card or n_params != cfg.param_count():
+        raise AssertionError("%s: tensors off the card %s, or %d parameters against "
+                             "param_count() %d" % (arch, off_card[:4], n_params, cfg.param_count()))
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P), dtype=np.int64)).cuda()
+    extra = {}
+    if cfg.family == "audio":
+        extra["frames"] = torch.randn((B, cfg.encoder_frames, cfg.d_model), generator=gen,
+                                      device="cuda").to(cfg.dtype)
+    prefill_fn, decode_fn, abstract = make_serve_steps(model, batch=B, max_len=max_len)
+    torch.cuda.reset_peak_memory_stats()
+    prefill_fn({"tokens": prompts, **extra})  # cuBLAS and the allocator warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, pc = prefill_fn({"tokens": prompts, **extra})
+    caches = prefill_to_decode_caches(cfg, model, pc, B, max_len, P)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    del pc
+    fed, step_logits, step_ms = [tok], [], []
+    for t in range(N):
+        t1 = time.perf_counter()
+        tok, logits_d, caches = decode_fn(tok, caches, P + t)
+        tok.cpu()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        step_logits.append(logits_d[:, 0])
+        fed.append(tok)
+    peak = torch.cuda.max_memory_allocated()
+    shapes_ok = ([tuple(t.shape) for t in _cache_tensors(abstract)]
+                 == [tuple(t.shape) for t in _cache_tensors(caches)])
+    del caches
+    seq = torch.cat([prompts] + [t.long() for t in fed[:N]], dim=1)
+    with torch.inference_mode():
+        full = model.logits({"tokens": seq, **extra})
+        consistency = {
+            "ratio": allclose_ratio(full[:, P:], torch.stack(step_logits, 1), SERVE_TOL),
+            "prefill_ratio": allclose_ratio(full[:, P - 1], logits[:, 0], SERVE_TOL),
+            "max_abs_err": float((torch.stack(step_logits, 1).float()
+                                  - full[:, P:].float()).abs().max()),
+            "finite": bool(torch.isfinite(full.float()).all()
+                           and torch.isfinite(torch.stack(step_logits).float()).all()),
+        }
+        if cfg.family == "ssm":  # as test_serve_consistency.py: the longer prefix's prefill
+            longer, _ = prefill_fn({"tokens": seq[:, : P + 1]})
+            consistency["longer_prefix_ratio"] = allclose_ratio(longer[:, 0], step_logits[0],
+                                                                SERVE_TOL)
+    del full, step_logits
+    model.to(torch.float64)
+    model.cfg = dataclasses.replace(cfg, dtype=torch.float64)
+    t0 = time.perf_counter()
+    if cfg.family == "ssm":
+        fp64 = xlstm_forms_fp64(model, seq, P)
+    else:
+        fp64 = whisper_layers_fp64(model, seq, extra["frames"].double(), P)
+    fp64_s = time.perf_counter() - t0
+    row = {
+        "arch": arch, "card": card, "params": n_params, "init_s": init_s, "batch": B,
+        "prompt": P, "new_tokens": N, "prefill_ms": prefill_ms,
+        "decode_ms": {"p50": float(np.percentile(step_ms, 50)),
+                      "p99": float(np.percentile(step_ms, 99)), "steps": step_ms},
+        "decode_tokens_per_s": B * N / (sum(step_ms) / 1e3),
+        "max_memory_allocated": peak, "caches_match_abstract": shapes_ok,
+        "consistency_bf16": consistency, "fp64": fp64, "fp64_s": fp64_s,
+    }
+    del model
+    torch.cuda.empty_cache()
+    if not (shapes_ok and consistency["finite"] and fp64["ratio"] <= 1):
+        raise AssertionError("%s at full width: decode differs from %s in fp64 at rtol = atol "
+                             "= %g, a logit is not finite, or the caches differ from "
+                             "caches_abstract: %s" % (arch, "the chunkwise form" if
+                                                      cfg.family == "ssm" else "the forward",
+                                                      FP64_TOL, json.dumps(row)))
+    return row
+
+
+def _cache_tensors(tree) -> list:
+    """The tensors of a cache tree: dicts by key, tuples (the sLSTM state)
+    in order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _cache_tensors(tree[k])]
+    if isinstance(tree, tuple):
+        return [t for sub in tree for t in _cache_tensors(sub)]
+    return [tree]
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the train path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_SHARDS = 2  # make_corpus's count and size
+TRAIN_SHARD_MIB = 1
+TRAIN_STEPS = 12  # timed; steps 3-12 give the step time
+TRAIN_PROFILED = 2  # more steps, under torch.profiler
+RESTORE_LAYERS = 2  # depth of the preempt-and-restore leg (full width)
+RESTORE_STEPS = 12  # the unbroken run; the broken one stops at half and restores
+COMPRESSED_STEPS = 6
+FAMILY_TRAIN_STEPS = 4
+LOSS_TOL = 1e-3  # the restored run's losses against the unbroken run's
+ACCUM_RTOL, ACCUM_ATOL = 3e-2, 3e-3  # grad_accum=2 against 1 (tests/test_train.py:61-64)
+
+
+def _driver_args(work: Path, arch: str, steps: int, seed: int, *extra: str):
+    from repro_torch.launch import train as launch
+
+    return launch.build_parser().parse_args(
+        ["--arch", arch, "--steps", str(steps), "--corpus", str(work / "corpus"),
+         "--seed", str(seed), "--device", "cuda", *extra])
+
+
+def _du(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def restore_leg(seed: int, work: Path) -> dict:
+    """granite-3-2b at full width and RESTORE_LAYERS layers: an unbroken run
+    of RESTORE_STEPS steps; a run from the same weights that saves a
+    checkpoint at half, a fresh model (another seed) and dataset that
+    restore it and run the rest; grad_accum=2 against 1 from one state; and
+    COMPRESSED_STEPS steps with compressed gradients."""
+    import dataclasses
+    import glob
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import GzipCorpusDataset
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_tensors
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RESTORE_LAYERS)
+    shards = sorted(glob.glob(str(work / "corpus" / "*.gz")))
+    ocfg = AdamWConfig(peak_lr=3e-3, warmup_steps=5, total_steps=RESTORE_STEPS)
+    half = RESTORE_STEPS // 2
+
+    def fresh(s, **kw):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(s)
+        model = build_model(cfg, device="cuda")
+        params, opt = init_train_state(model, gen, **kw)
+        return model, params, opt
+
+    def dataset():
+        return GzipCorpusDataset(shards, seq_len=128, batch_size=8, parallelization=4,
+                                 chunk_size=256 << 10, device="cuda")
+
+    def steps(step_fn, params, opt, ds, n, batches=None, losses=None, times=None):
+        for _ in range(n):
+            batch = ds.next_batch()
+            if batches is not None:
+                batches.append(batch["tokens"].copy())
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            loss = float(m["loss"])
+            if times is not None:
+                times.append((time.perf_counter() - t0) * 1e3)
+            if losses is not None:
+                losses.append(loss)
+        return params, opt
+
+    out = {"layers": RESTORE_LAYERS, "steps": RESTORE_STEPS}
+    # 1. unbroken
+    model, params, opt = fresh(seed)
+    ds = dataset()
+    batches, losses = [], []
+    steps(make_train_step(model, ocfg), params, opt, ds, RESTORE_STEPS, batches, losses)
+    ds.close()
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["unbroken_losses"] = losses
+    del model, params, opt
+    # 2. the same weights, preempted at half
+    model_b, params_b, opt_b = fresh(seed)
+    ds = dataset()
+    seen, broken = [], []
+    params_b, opt_b = steps(make_train_step(model_b, ocfg), params_b, opt_b, ds, half, seen, broken)
+    ckpt = work / "ckpt"
+    t0 = time.perf_counter()
+    save_checkpoint(str(ckpt), half, {"params": params_b, "opt": opt_b, "data": ds.state_dict()})
+    out["save_s"] = time.perf_counter() - t0
+    out["ckpt_bytes"] = _du(ckpt)
+    ds.close()
+    # 3. a fresh process's state: another seed, a new dataset, then restore
+    model_c, params_c, opt_c = fresh(seed + 1)
+    ds = dataset()
+    t0 = time.perf_counter()
+    step, state = restore_checkpoint(latest_checkpoint(str(ckpt)),
+                                     {"params": params_c, "opt": opt_c, "data": ds.state_dict()})
+    ds.load_state_dict(state["data"])
+    opt_c = state["opt"]
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    def state(params, opt):
+        return tree_tensors(params) + tree_tensors(opt["m"]) + tree_tensors(opt["v"]) + [opt["step"]]
+
+    pairs = list(zip(state(params_b, opt_b), state(params_c, opt_c)))
+    out["restored_leaves"] = len(pairs)
+    out["restored_unequal"] = sum(not torch.equal(a, b) for a, b in pairs)
+    out["restored_on_card"] = all(b.device.type == "cuda" for _, b in pairs)
+    out["restored_step"] = step
+    del model_b, params_b, opt_b, pairs
+    resumed, resumed_batches = [], []
+    steps(make_train_step(model_c, ocfg), params_c, opt_c, ds, RESTORE_STEPS - half,
+          resumed_batches, resumed)
+    ds.close()
+    del model_c, params_c, opt_c
+    out["broken_losses"] = broken + resumed
+    out["batches_equal"] = all(np.array_equal(a, b) for a, b in
+                               zip(seen + resumed_batches, batches)) and \
+        len(seen + resumed_batches) == len(batches)
+    out["resumed_loss_max_abs_diff"] = float(np.max(np.abs(np.array(resumed)
+                                                           - np.array(losses[half:]))))
+    # 4. grad_accum=2 against 1 from the same state and batch
+    tensors = []
+    for accum in (1, 2):
+        model, params, opt = fresh(seed + 2)
+        make_train_step(model, ocfg, grad_accum=accum)(params, opt, {"tokens": batches[0]})
+        tensors.append(tree_tensors(params))
+        del model, params, opt
+    ratio = max(float(((a.detach().float() - b.detach().float()).abs()
+                       / (ACCUM_ATOL + ACCUM_RTOL * b.float().abs())).max())
+                for a, b in zip(*tensors))
+    out["accum_ratio"] = ratio
+    del tensors
+    # 5. compressed gradients
+    model, params, opt = fresh(seed + 3, compress_grads=True)
+    ds = dataset()
+    comp_losses, comp_ms = [], []
+    steps(make_train_step(model, ocfg, compress_grads=True), params, opt, ds, COMPRESSED_STEPS,
+          losses=comp_losses, times=comp_ms)
+    ds.close()
+    del model, params, opt
+    out["compressed"] = {"losses": comp_losses, "step_ms": comp_ms}
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_path(seed: int, card: str) -> dict:
+    """Phase 11: granite-3-2b at full width trains TRAIN_STEPS steps, then
+    TRAIN_PROFILED more under torch.profiler, through
+    repro_torch.launch.train.run on make_corpus shards read by
+    GzipCorpusDataset(device="cuda") (the process-wide engine); then the
+    preempt-and-restore leg, and xlstm-350m and whisper-tiny train."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import crc32 as kc
+    from repro_torch.kernels import marker_replace as mr
+    from repro_torch.kernels.engine import shared_engine
+    from repro_torch.launch import train as launch
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="train-", dir=ROOT / "build"))
+    engine = shared_engine("cuda")
+    before = engine.stats()
+    lines = []
+
+    def relay(line):
+        lines.append(line)
+        log("train path [%s]: %s" % (card, line))
+
+    try:
+        t_phase = time.perf_counter()
+        args = _driver_args(work, TRAIN_ARCH, TRAIN_STEPS + TRAIN_PROFILED, seed + 70,
+                            "--profile-steps", str(TRAIN_PROFILED))
+        # Phase 9's base64 text in make_corpus's shard files (make_corpus
+        # keeps files it finds): its 12-word text gzips a 1 MiB shard into
+        # less than one 256 KiB chunk, whose window is known, so stage 2
+        # would find no marker to replace.
+        Path(args.corpus).mkdir(parents=True)
+        for i in range(TRAIN_SHARDS):
+            (Path(args.corpus) / ("shard_%03d.gz" % i)).write_bytes(
+                gzip.compress(base64_corpus(seed + 70 + i, TRAIN_SHARD_MIB << 20), 6, mtime=0))
+        torch.cuda.reset_peak_memory_stats()
+        mr.reset_launches()
+        kc.reset_launches()
+        t0 = time.perf_counter()
+        run = launch.run(args, log=relay)
+        run_s = time.perf_counter() - t0
+        launches = {"marker_replace": mr.launches, "crc32": kc.launches}
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        timed = [s * 1e3 for s in run["step_s"][2:TRAIN_STEPS]]  # steps 3-12
+        tokens_per_step = args.batch * args.seq
+        result = {
+            "card": card, "arch": TRAIN_ARCH, "params": run["params"], "batch": args.batch,
+            "seq": args.seq, "steps": TRAIN_STEPS, "losses": run["losses"],
+            "step_ms": {"p50": float(np.percentile(timed, 50)),
+                        "p99": float(np.percentile(timed, 99)),
+                        "first": run["step_s"][0] * 1e3, "all": [s * 1e3 for s in run["step_s"]]},
+            "tokens_per_s": tokens_per_step / (float(np.percentile(timed, 50)) / 1e3),
+            "data_share": run["data_share"], "data_ms": [s * 1e3 for s in run["data_s"]],
+            "max_memory_allocated": peak, "profile": run["profile"], "devices": run["devices"],
+            "run_s": run_s, "launches": launches,
+        }
+        t0 = time.perf_counter()
+        result["restore"] = restore_leg(seed + 80, work)
+        result["restore_leg_s"] = time.perf_counter() - t0
+        families = {}
+        for i, arch in enumerate(("xlstm-350m", "whisper-tiny")):
+            torch.cuda.reset_peak_memory_stats()
+            fam = launch.run(_driver_args(work, arch, FAMILY_TRAIN_STEPS, seed + 90 + i),
+                             log=relay)
+            families[arch] = {"losses": fam["losses"], "params": fam["params"],
+                              "step_ms": [s * 1e3 for s in fam["step_s"]],
+                              "devices": fam["devices"],
+                              "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            torch.cuda.empty_cache()
+        result["families"] = families
+        result["seconds"] = time.perf_counter() - t_phase
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    after = engine.stats()
+    rest = result["restore"]
+    losses = result["losses"] + rest["unbroken_losses"] + rest["broken_losses"] + \
+        rest["compressed"]["losses"] + [x for f in families.values() for x in f["losses"]]
+    on_card = all(v == ["cuda"] for d in [result["devices"]] + [f["devices"] for f in
+                                                                families.values()]
+                  for v in d.values())
+    problems = []
+    if not all(np.isfinite(losses)):
+        problems.append("a loss is not finite")
+    if not on_card:
+        problems.append("a parameter, gradient or moment is off the card: %s" % result["devices"])
+    if min(launches.values()) < 1:
+        problems.append("a kernel never launched on the train path: %s" % launches)
+    if after["errors"] != before["errors"] or after["fallbacks"] != before["fallbacks"]:
+        problems.append("the corpus engine erred or fell back: errors %d, fallbacks %s"
+                        % (after["errors"], after["fallbacks"]))
+    if rest["restored_unequal"] or not rest["restored_on_card"] or rest["restored_step"] != \
+            RESTORE_STEPS // 2:
+        problems.append("%d of %d restored leaves differ from the saved ones (on the card: %s, "
+                        "step %d)" % (rest["restored_unequal"], rest["restored_leaves"],
+                                      rest["restored_on_card"], rest["restored_step"]))
+    if not rest["batches_equal"]:
+        problems.append("the batches after the restore differ from the unbroken run's")
+    if rest["resumed_loss_max_abs_diff"] > LOSS_TOL:
+        problems.append("the restored run's losses are %g from the unbroken run's"
+                        % rest["resumed_loss_max_abs_diff"])
+    if rest["accum_ratio"] > 1:
+        problems.append("grad_accum=2 against 1: allclose ratio %g" % rest["accum_ratio"])
+    if problems:
+        raise AssertionError("train path: %s; %s" % ("; ".join(problems),
+                                                     json.dumps(result)[:4000]))
+    return result
+
+
+def log_train(train: dict, card: str) -> None:
+    st, prof, rest = train["step_ms"], train["profile"], train["restore"]
+    log("train path [%s]: %s at full width (%d parameters), batch %d x seq %d: step ms p50 %.3f "
+        "p99 %.3f over steps 3-%d (first %.3f), %.1f tokens/s, data share %.4f, "
+        "max_memory_allocated %d; losses %s"
+        % (card, train["arch"], train["params"], train["batch"], train["seq"], st["p50"],
+           st["p99"], train["steps"], st["first"], train["tokens_per_s"], train["data_share"],
+           train["max_memory_allocated"], json.dumps(train["losses"])))
+    log("train path [%s]: %d profiled steps in %.3f s, device busy %.3f ms over %d device ops "
+        "(idle share %s); top ops %s; launches %s; devices %s"
+        % (card, prof["steps"], prof["wall_s"], prof["device_busy_ms"], prof["device_op_count"],
+           prof["device_idle_share"], json.dumps(prof["device_ops"][:8]),
+           json.dumps(train["launches"]), json.dumps(train["devices"])))
+    log("train path [%s]: restore leg (%d layers, %d parameters): checkpoint %d bytes on disk, "
+        "save %.3f s, restore %.3f s, %d leaves bit-equal, batches equal %s, resumed losses "
+        "within %.3g of the unbroken run's, grad_accum 2 vs 1 ratio %.4f; unbroken %s; "
+        "broken %s; compressed losses %s, step ms %s"
+        % (card, rest["layers"], rest["params"], rest["ckpt_bytes"], rest["save_s"],
+           rest["restore_s"], rest["restored_leaves"], rest["batches_equal"],
+           rest["resumed_loss_max_abs_diff"], rest["accum_ratio"],
+           json.dumps(rest["unbroken_losses"]), json.dumps(rest["broken_losses"]),
+           json.dumps(rest["compressed"]["losses"]), json.dumps(rest["compressed"]["step_ms"])))
+    for arch, fam in train["families"].items():
+        log("train path [%s]: %s at full width (%d parameters): losses %s, step ms %s, "
+            "max_memory_allocated %d" % (card, arch, fam["params"], json.dumps(fam["losses"]),
+                                         json.dumps(fam["step_ms"]), fam["max_memory_allocated"]))
+    log("train path [%s]: seconds %.3f (restore leg %.3f)" % (card, train["seconds"],
+                                                              train["restore_leg_s"]))
+
+
 def log_serve(serve: dict, card: str) -> None:
     d, prof, rd = serve["decode_ms"], serve["profiled"], serve["reads"]
     log("serve path [%s]: %s, %d prompts of %d tokens, %d greedy steps: prefill %.3f ms (first "
@@ -1620,6 +2140,18 @@ def log_serve(serve: dict, card: str) -> None:
            json.dumps(serve["seconds"])))
     for row in serve["families"]:
         log("serve path [%s]: smoke width %s" % (card, json.dumps(row)))
+
+
+def log_family(row: dict, card: str) -> None:
+    d = row["decode_ms"]
+    log("serve path [%s]: %s at full width (%d parameters), %d prompts of %d tokens: prefill "
+        "%.3f ms, decode ms per step p50 %.3f p99 %.3f (%.1f tokens/s), max_memory_allocated "
+        "%d; decode against the teacher-forced forward in bf16 at rtol = atol = %g: %s; in fp64 "
+        "(fatal at %g): %s (%.3f s)"
+        % (card, row["arch"], row["params"], row["batch"], row["prompt"], row["prefill_ms"],
+           d["p50"], d["p99"], row["decode_tokens_per_s"], row["max_memory_allocated"],
+           SERVE_TOL, json.dumps(row["consistency_bf16"]), FP64_TOL, json.dumps(row["fp64"]),
+           row["fp64_s"]))
 
 
 def log_fleet(fleet: dict, card: str) -> None:
@@ -1769,6 +2301,13 @@ def main() -> int:
     with shared_engine_untouched():
         serve = serve_path(args.seed, card)
     log_serve(serve, card)
+    serve["full_width_families"] = [family_serve(arch, args.seed + offset, card)
+                                    for arch, offset in FAMILY_SERVE]
+    for row in serve["full_width_families"]:
+        log_family(row, card)
+
+    train = train_path(args.seed, card)
+    log_train(train, card)
 
     sources = {
         "marker_replace": ("src/repro_torch/kernels/csrc/marker_replace.cu",
@@ -1784,7 +2323,7 @@ def main() -> int:
     # the ops path only).
     by_path = {"main": path["launches"], "ops": ops["launches"], "service": service["launches"],
                "fleet": fleet["launches"], "pipeline": pipeline["launches"],
-               "serve": serve["launches"]}
+               "serve": serve["launches"], "train": train["launches"]}
     checked = rows + at_path + precode_rows
     kernels = []
     for row in at_path:
@@ -1803,7 +2342,7 @@ def main() -> int:
             "card": card, "build_s": build_s, "launch_floor_ms": floor_ms, "kernel_rows": rows,
             "at_path": at_path, "main_path": path, "precode_rows": precode_rows, "ops_path": ops,
             "service_path": service, "fleet_path": fleet, "pipeline_path": pipeline,
-            "serve_path": serve, "kernels": kernels,
+            "serve_path": serve, "train_path": train, "kernels": kernels,
         }, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

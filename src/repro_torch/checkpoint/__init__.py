@@ -1,0 +1,3 @@
+from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
+
+__all__ = ["latest_checkpoint", "restore_checkpoint", "save_checkpoint"]

@@ -1,4 +1,4 @@
-from .model import Model, build_model, cross_entropy
+from .model import EncDecModel, Model, XLSTMModel, build_model, cross_entropy
 from .transformer import init_caches
 
-__all__ = ["Model", "build_model", "cross_entropy", "init_caches"]
+__all__ = ["EncDecModel", "Model", "XLSTMModel", "build_model", "cross_entropy", "init_caches"]

@@ -1,12 +1,13 @@
-"""Load the JAX package's parameters into the port's modules.
+"""Move parameters between the JAX package's trees and the port's modules.
 
 ``params_from_jax(cfg, tree)`` takes a parameter tree of the JAX package
 (``repro.models.build_model(cfg).init(key)``) with every leaf as a numpy
-array (``np.asarray`` of each leaf; stacked ``[L, ...]`` leaves as the JAX
-package stacks its layers) and returns the port's ``Model`` holding the
-same values, so both packages compute the same function. Nothing here
-imports jax: bf16 leaves arrive as numpy's ``bfloat16`` extension dtype and
-are reinterpreted bit for bit.
+array (``np.asarray`` of each leaf; stacked ``[L, ...]`` or ``[G, L, ...]``
+leaves as the JAX package stacks its layers) and returns the port's model
+holding the same values, so both packages compute the same function.
+``params_to_jax(model)`` is its inverse. Nothing here imports jax: bf16
+leaves arrive as numpy's ``bfloat16`` extension dtype and are
+reinterpreted bit for bit.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import leaf_paths
-from .model import Model, build_model
+from .layers import leaf_paths, stacked, tree_map_leaves
+from .model import build_model
 
 
 def to_tensor(array: Any) -> torch.Tensor:
@@ -31,7 +32,18 @@ def to_tensor(array: Any) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_jax(cfg: ModelConfig, tree: Any, device="cuda") -> Model:
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array of the same dtype; bf16 bit for bit as
+    numpy's ``bfloat16`` (the ``ml_dtypes`` type JAX arrays convert to)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.contiguous().view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_jax(cfg: ModelConfig, tree: Any, device="cuda"):
     """The port's model of ``cfg`` on ``device`` with the parameters of
     ``tree``; every declared leaf must be there with its declared shape
     and dtype, and nothing else."""
@@ -54,3 +66,10 @@ def params_from_jax(cfg: ModelConfig, tree: Any, device="cuda") -> Model:
 
     model.assign(model.defs, value)
     return model
+
+
+def params_to_jax(model) -> Any:
+    """The model's parameters as the JAX package's tree: its keys, stacked
+    leaves, numpy arrays of the declared dtypes (bf16 as numpy's
+    ``bfloat16``)."""
+    return tree_map_leaves(lambda leaf: to_numpy(stacked(leaf)), model.param_tree())

@@ -87,22 +87,35 @@ def unstack_defs(defs, n: int):
     return tree_map(one, defs)
 
 
+def _stack_modules(defs, device, depth: int) -> nn.ModuleList:
+    """``[n, ...]`` declarations as ``n`` one-layer trees; with ``depth`` 2
+    (``[n, m, ...]``) each of them is a stack of ``m`` again."""
+    n = tree_leaves(defs)[0].shape[0]
+    one = unstack_defs(defs, n)
+    if depth == 1:
+        return nn.ModuleList(ParamTree(one, device) for _ in range(n))
+    return nn.ModuleList(_stack_modules(one, device, depth - 1) for _ in range(n))
+
+
 class ParamTree(nn.Module):
     """The parameters a tree of ``ParamDef`` declares, allocated (not yet
     initialized) on ``device``: a leaf becomes an ``nn.Parameter``, a nested
     dict a child ``ParamTree``, and each key in ``stacked`` (declared
     ``[L, ...]``, as the JAX package stacks its layers) an ``nn.ModuleList``
-    of ``L`` one-layer trees. ``tree[key]`` reads like the JAX dicts."""
+    of ``L`` one-layer trees. ``stacked`` maps a key to its number of
+    stacked dims (a tuple of keys means one each): with 2, declared
+    ``[G, L, ...]``, the key holds ``G`` lists of ``L`` trees (the xLSTM's
+    groups of mLSTM blocks). ``tree[key]`` reads like the JAX dicts."""
 
-    def __init__(self, defs: Dict[str, Any], device, stacked: Tuple[str, ...] = ()):
+    def __init__(self, defs: Dict[str, Any], device, stacked=()):
         super().__init__()
+        depths = stacked if isinstance(stacked, dict) else dict.fromkeys(stacked, 1)
+        self.defs = defs
         self._keys = sorted(defs)
         for k in self._keys:
             d = defs[k]
-            if k in stacked:
-                n = tree_leaves(d)[0].shape[0]
-                self.add_module(k, nn.ModuleList(
-                    ParamTree(unstack_defs(d, n), device) for _ in range(n)))
+            if depths.get(k):
+                self.add_module(k, _stack_modules(d, device, depths[k]))
             elif isinstance(d, dict):
                 self.add_module(k, ParamTree(d, device))
             else:
@@ -128,13 +141,33 @@ class ParamTree(nn.Module):
         order; a stack's value is ``[L, ...]`` and layer ``i`` takes slice
         ``i``."""
         for path, d in leaf_paths(defs):
-            t = value(d, path)
-            head = self[path[0]]
-            if isinstance(head, nn.ModuleList):
-                for i, layer in enumerate(head):
-                    layer.get(path[1:]).copy_(t[i])
-            else:
-                self.get(path).copy_(t)
+            leaf = self.param_leaf(path)
+            map_members(lambda p, v: p.copy_(v), leaf, stack_members(value(d, path), leaf))
+
+    def param_leaf(self, path: Tuple[str, ...]):
+        """The parameters of one declared leaf: a tensor, or for a stacked
+        key the per-layer tensors as a list (of lists for two stacked dims)."""
+        head = self[path[0]]
+        if isinstance(head, nn.ModuleList):
+            def layers(node):
+                if isinstance(node, nn.ModuleList):
+                    return [layers(sub) for sub in node]
+                return node.get(path[1:])
+
+            return layers(head)
+        return self.get(path)
+
+    def param_tree(self) -> Dict[str, Any]:
+        """The parameters as the JAX package's tree: its keys, each leaf the
+        ``param_leaf`` of its path (the module's own tensors, so an update
+        in place updates the module)."""
+        out: Dict[str, Any] = {}
+        for path, _ in leaf_paths(self.defs):
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = self.param_leaf(path)
+        return out
 
 
 def leaf_paths(tree, prefix: Tuple[str, ...] = ()):
@@ -144,6 +177,62 @@ def leaf_paths(tree, prefix: Tuple[str, ...] = ()):
             yield from leaf_paths(tree[k], prefix + (k,))
     else:
         yield prefix, tree
+
+
+# ---------------------------------------------------------------------------
+# stacked leaves held per layer
+# ---------------------------------------------------------------------------
+# A leaf of a port tree (``ParamTree.param_tree``, and the optimizer state
+# built from it) is a tensor, or the per-layer tensors of one stacked leaf
+# of the JAX package as a list (a list of lists for two stacked dims).
+
+def stack_depth(leaf) -> int:
+    """The stacked dims a leaf stands for (0 for a tensor)."""
+    return 1 + stack_depth(leaf[0]) if isinstance(leaf, list) else 0
+
+
+def members(leaf) -> list:
+    """The tensors of a leaf, layer by layer."""
+    if isinstance(leaf, list):
+        return [t for sub in leaf for t in members(sub)]
+    return [leaf]
+
+
+def map_members(fn: Callable, leaf, *others):
+    """``fn`` over the tensors of ``leaf`` and the same-placed tensors of
+    ``others`` (leaves of the same layout), keeping the layout."""
+    if isinstance(leaf, list):
+        return [map_members(fn, *subs) for subs in zip(leaf, *others)]
+    return fn(leaf, *others)
+
+
+def tree_tensors(tree) -> list:
+    """Every tensor of a port tree: leaves in sorted key order, a stacked
+    leaf's layer by layer."""
+    return [t for leaf in tree_leaves(tree) for t in members(leaf)]
+
+
+def stacked(leaf) -> torch.Tensor:
+    """A leaf as the one tensor the JAX package holds (a copy for a list)."""
+    if isinstance(leaf, list):
+        return torch.stack([stacked(sub) for sub in leaf])
+    return leaf
+
+
+def stack_members(t: torch.Tensor, like):
+    """A stacked tensor cut into the layout of ``like`` (views)."""
+    if isinstance(like, list):
+        assert t.shape[0] == len(like), (tuple(t.shape), len(like))
+        return [stack_members(t[i], sub) for i, sub in enumerate(like)]
+    return t
+
+
+def tree_map_leaves(fn: Callable, tree, *others):
+    """``fn`` over the leaves of nested dicts of the same keys (a list is a
+    leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_leaves(fn, tree[k], *(o[k] for o in others)) for k in sorted(tree)}
+    return fn(tree, *others)
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +251,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     var = xf.square().mean(-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * (1.0 + at_least_fp32(weight))).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Mean and population variance in fp32 (fp64 for an fp64 model),
+    weight and bias applied in that precision, cast back."""
+    xf = at_least_fp32(x)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    normed = (xf - mu) * torch.rsqrt(var + eps)
+    return (normed * at_least_fp32(weight) + at_least_fp32(bias)).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0) -> np.ndarray:
@@ -438,3 +538,19 @@ def init_kv_cache(
     if ring:
         cache["pos"] = torch.full((max_len,), -1, dtype=torch.int32, device=device)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+def cross_attention_block(
+    params: Params,
+    x: torch.Tensor,  # decoder states [B, S, D]
+    enc: torch.Tensor,  # encoder states [B, T, D]
+) -> torch.Tensor:
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("btd,dhk->bthk", enc, params["wk"])
+    v = torch.einsum("btd,dhk->bthk", enc, params["wv"])
+    out = causal_attention(q, k, v, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])

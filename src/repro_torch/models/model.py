@@ -5,12 +5,13 @@
     prefill(batch)                             (logits + per-layer cache tensors)
     decode_step(tokens, caches, cache_pos)     (caches updated in place)
 
-The counterpart of ``repro.models.model``. The ``Model`` holds its
-parameters (an ``nn.Module`` on one device), where the JAX facade takes a
-parameter tree per call. Families: dense / moe / hybrid / vlm ->
-``transformer.py`` (vlm with prefix embeddings). The ssm (xLSTM) and audio
-(Whisper) families are declared (``model_defs``, so ``param_count`` counts
-them) but do not run yet: ``build_model`` raises for them.
+The counterpart of ``repro.models.model``. A model holds its parameters
+(an ``nn.Module`` on one device), where the JAX facade takes a parameter
+tree per call; ``param_tree()`` gives them as the JAX package's tree (for
+the optimizer and the checkpoint). Families: dense / moe / hybrid / vlm ->
+``Model`` over ``transformer.py`` (vlm with prefix embeddings); ssm
+(xLSTM) -> ``XLSTMModel`` over ``xlstm.py``; audio (Whisper) ->
+``EncDecModel`` over ``encdec.py``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels._build import resolve_device
 from . import encdec, transformer, xlstm
-from .layers import ParamDef, ParamTree, abstract_tree, logical_tree, stack_defs
+from .layers import ParamDef, ParamTree, abstract_tree, logical_tree, rms_norm, stack_defs, tree_map
 
 
 def cross_entropy(
@@ -78,25 +79,23 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
-# decoder-only families (dense / moe / hybrid / vlm)
+# the facade every family shares
 # ---------------------------------------------------------------------------
 
-class Model(ParamTree):
-    """A decoder on one device: its parameters (allocated, not yet
+class _Facade(ParamTree):
+    """A model on one device: its parameters (allocated, not yet
     initialized: call ``init`` or load them, ``convert.params_from_jax``)
     and the four entry points of the JAX package's ``Model``."""
 
-    def __init__(self, cfg: ModelConfig, device):
-        defs = transformer.decoder_defs(cfg)
-        super().__init__(defs, device, stacked=tuple(name for name, _ in transformer.STACKS))
+    def __init__(self, cfg: ModelConfig, device, stacked):
+        super().__init__(model_defs(cfg), device, stacked=stacked)
         self.cfg = cfg
-        self.defs = defs
 
     @property
     def device(self) -> torch.device:
         return self["embed"].device
 
-    def init(self, generator: torch.Generator) -> "Model":
+    def init(self, generator: torch.Generator) -> "_Facade":
         """Draw every parameter as the JAX package's ``ParamDef.initialize``
         does (normal x scale or 1/sqrt(fan_in), zeros, ones), from
         ``generator``, which lies on this model's device."""
@@ -109,8 +108,27 @@ class Model(ParamTree):
     def logical(self) -> Any:
         return logical_tree(self.defs)
 
+
+# ---------------------------------------------------------------------------
+# decoder-only families (dense / moe / hybrid / vlm)
+# ---------------------------------------------------------------------------
+
+class Model(_Facade):
+    """A decoder: ``transformer.forward`` in its three modes."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__(cfg, device, tuple(name for name, _ in transformer.STACKS))
+
     def _prefix(self, batch) -> Optional[torch.Tensor]:
         return batch["patches"] if self.cfg.family == "vlm" else None
+
+    def logits(self, batch) -> torch.Tensor:
+        """Train-mode (teacher-forced) logits of every position of
+        ``batch["tokens"]``."""
+        prefix = self._prefix(batch)
+        logits = transformer.forward(self.cfg, self, batch["tokens"], mode="train",
+                                     prefix_embeds=prefix)[0]
+        return logits if prefix is None else logits[:, prefix.shape[1] :]
 
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         tokens = batch["tokens"]
@@ -143,17 +161,131 @@ class Model(ParamTree):
                                        device=self.device if device is None else device)
 
 
-def build_model(cfg: ModelConfig, device="cuda") -> Model:
+# ---------------------------------------------------------------------------
+# xLSTM (ssm family)
+# ---------------------------------------------------------------------------
+
+class XLSTMModel(_Facade):
+    """Groups of ``slstm_every - 1`` mLSTM blocks and one sLSTM block.
+    Train mode runs the mLSTM's parallel form (S <= 256), prefill its
+    chunkwise form and returns every block's state, decode its recurrent
+    step, writing the states in place. The caches: ``{"m": {"c", "n",
+    "m"} [G, L, B, ...], "s": (c, n, m, h) [G, B, H, Dh]}``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        n_m = max(1, cfg.slstm_every) - 1
+        super().__init__(cfg, device, {"mlstm": 2 if n_m else 1, "slstm": 1})
+        self.n_m = n_m
+
+    def _run(self, tokens, *, mode: str, caches=None):
+        cfg = self.cfg
+        x = self["embed"][tokens]
+        want_state = mode != "train"
+        m_states, s_states = [], []
+        for g, (p_m, p_s) in enumerate(zip(self["mlstm"], self["slstm"])):
+            group_m = []
+            for j in range(self.n_m):
+                cache = None
+                if mode == "decode":
+                    cache = {k: v[g, j] for k, v in caches["m"].items()}
+                x, st = xlstm.mlstm_block(p_m[j], x, cfg.n_heads, state=cache,
+                                          return_state=want_state)
+                if mode == "decode":
+                    for k, v in st.items():
+                        cache[k].copy_(v)
+                group_m.append(st)
+            cache = tuple(v[g] for v in caches["s"]) if mode == "decode" else None
+            x, st = xlstm.slstm_block(p_s, x, cfg.n_heads, state=cache, return_state=want_state)
+            if mode == "decode":
+                for dst, v in zip(cache, st):
+                    dst.copy_(v)
+            m_states.append(group_m)
+            s_states.append(st)
+        x = rms_norm(x, self["final_norm"])
+        logits = torch.einsum("bsd,dv->bsv", x, self["unembed"])
+        if mode == "prefill":
+            caches = {"s": tuple(torch.stack([st[i] for st in s_states]) for i in range(4))}
+            if self.n_m:
+                caches["m"] = {k: torch.stack([torch.stack([st[k] for st in group])
+                                               for group in m_states])
+                               for k in ("c", "n", "m")}
+        return logits, caches
+
+    def logits(self, batch) -> torch.Tensor:
+        """Train-mode (teacher-forced) logits of every position of
+        ``batch["tokens"]``."""
+        return self._run(batch["tokens"], mode="train")[0]
+
+    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        tokens = batch["tokens"]
+        return cross_entropy(self.logits({"tokens": tokens[:, :-1]}), tokens[:, 1:])
+
+    def prefill(self, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        logits, caches = self._run(batch["tokens"], mode="prefill")
+        return logits[:, -1:], caches
+
+    def decode_step(self, tokens, caches, cache_pos: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        return self._run(tokens, mode="decode", caches=caches)
+
+    def init_decode_caches(self, batch: int, max_len: int, device=None) -> Dict[str, Any]:
+        cfg = self.cfg
+        device = self.device if device is None else device
+        n_groups = cfg.n_layers // max(1, cfg.slstm_every)
+        dtype = torch.float64 if cfg.dtype == torch.float64 else torch.float32  # the states'
+        m_state = xlstm.init_mlstm_state(batch, cfg.d_model, cfg.n_heads, device=device,
+                                         dtype=dtype)
+        s_state = xlstm.init_slstm_state(batch, cfg.d_model, cfg.n_heads, device=device,
+                                         dtype=dtype)
+        caches = {"s": tuple(t[None].expand((n_groups,) + t.shape).clone() for t in s_state)}
+        if self.n_m:
+            caches["m"] = tree_map(
+                lambda t: t[None, None].expand((n_groups, self.n_m) + t.shape).clone(), m_state)
+        return caches
+
+
+# ---------------------------------------------------------------------------
+# Whisper (audio family)
+# ---------------------------------------------------------------------------
+
+class EncDecModel(_Facade):
+    """The encoder over ``batch["frames"]``, then the decoder stack. The
+    caches: ``{"attn": {"k", "v"}, "cross_k", "cross_v"}``, each
+    ``[L, B, ...]``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__(cfg, device, ("encoder", "decoder"))
+
+    def logits(self, batch) -> torch.Tensor:
+        """Train-mode (teacher-forced) logits of every position of
+        ``batch["tokens"]``, after encoding ``batch["frames"]``."""
+        enc = encdec.encode(self.cfg, self, batch["frames"])
+        return encdec.decode_stack(self.cfg, self, batch["tokens"], enc, mode="train")[0]
+
+    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        tokens = batch["tokens"]
+        logits = self.logits({"tokens": tokens[:, :-1], "frames": batch["frames"]})
+        return cross_entropy(logits, tokens[:, 1:])
+
+    def prefill(self, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        enc = encdec.encode(self.cfg, self, batch["frames"])
+        logits, caches = encdec.decode_stack(self.cfg, self, batch["tokens"], enc, mode="prefill")
+        return logits[:, -1:], caches
+
+    def decode_step(self, tokens, caches, cache_pos: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        return encdec.decode_stack(self.cfg, self, tokens, None, mode="decode", caches=caches,
+                                   cache_pos=cache_pos)
+
+    def init_decode_caches(self, batch: int, max_len: int, device=None) -> Dict[str, Any]:
+        return encdec.init_decoder_caches(self.cfg, batch, max_len, self.cfg.encoder_frames,
+                                          device=self.device if device is None else device)
+
+
+FAMILIES = {"ssm": XLSTMModel, "audio": EncDecModel}
+
+
+def build_model(cfg: ModelConfig, device="cuda") -> _Facade:
     """``cfg``'s model with its parameters allocated on ``device``: the card
     by default (raises without one), ``"cpu"`` on request, or ``"meta"``
     (shapes only)."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            "%s: the ssm family (models/xlstm.py) is not ported yet; ROADMAP.md queue 1, "
-            "item 5 ports it" % cfg.name)
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            "%s: the audio family (models/encdec.py) is not ported yet; ROADMAP.md queue 1, "
-            "item 5 ports it" % cfg.name)
     dev = torch.device(device)
-    return Model(cfg, dev if dev.type == "meta" else resolve_device(dev))
+    return FAMILIES.get(cfg.family, Model)(cfg, dev if dev.type == "meta" else resolve_device(dev))

@@ -15,10 +15,9 @@ from typing import Any
 import torch
 
 from ..configs.base import ModelConfig
-from ..models.model import Model
 
 
-def make_serve_steps(model: Model, *, batch: int, max_len: int):
+def make_serve_steps(model, *, batch: int, max_len: int):
     """Returns (prefill_fn, decode_fn, caches_abstract).
 
     ``prefill_fn(batch_inputs)`` -> (last-position logits, prefill caches);
@@ -42,7 +41,7 @@ def make_serve_steps(model: Model, *, batch: int, max_len: int):
 
 
 def prefill_to_decode_caches(
-    cfg: ModelConfig, model: Model, prefill_caches: Any, batch: int, max_len: int, prefill_len: int
+    cfg: ModelConfig, model, prefill_caches: Any, batch: int, max_len: int, prefill_len: int
 ) -> Any:
     """Lay prefill cache tensors ([L,B,S,...]) into decode cache buffers."""
     decode_caches = model.init_decode_caches(batch, max_len)
@@ -72,9 +71,15 @@ def _merge_cache_group(dst, src, prefill_len: int):
         return d.copy_(torch.roll(tail, s_src % s_dst, dims=2))
 
     def walk(d, s):
+        """Dicts by key, tuples (the sLSTM state) by position, tensors merged."""
+        if s is None:
+            return d
+        if isinstance(d, tuple):
+            return tuple(walk(dv, sv) for dv, sv in zip(d, s))
+        if not isinstance(d, dict):
+            return merge(d, s)
         out = {}
         for k, dv in d.items():
-            sv = s.get(k) if isinstance(s, dict) else None
             if k == "pos":
                 # ring positions for the prefix: slot p % W holds position p
                 W = dv.shape[-1]
@@ -82,12 +87,8 @@ def _merge_cache_group(dst, src, prefill_len: int):
                 base = (prefill_len - 1) // W * W if prefill_len else 0
                 cand = torch.where(base + pos < prefill_len, base + pos, base + pos - W)
                 out[k] = torch.where(cand >= 0, cand, -1).to(torch.int32).expand(dv.shape).clone()
-            elif sv is None:
-                out[k] = dv
-            elif isinstance(dv, dict):
-                out[k] = walk(dv, sv)
             else:
-                out[k] = merge(dv, sv)
+                out[k] = walk(dv, s.get(k) if isinstance(s, dict) else None)
         return out
 
     return walk(dst, src)

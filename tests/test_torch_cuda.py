@@ -437,3 +437,70 @@ def test_build_model_allocates_on_the_card_by_default(cuda):
     caches = model.init_decode_caches(2, 96)
     assert caches["layers"]["attn"]["pos"].device.type == "cuda"
     assert caches["layers"]["ssm"]["h"].device.type == "cuda"
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-tiny"])
+def test_new_family_on_the_card_matches_the_host(cuda, arch):
+    """The xLSTM and Whisper families at smoke width: the card's prefill
+    and decode logits against the same weights on the host in fp64
+    (1e-9; bf16 sums in other orders on either side, so the families are
+    held where the arithmetic is exact to the last bits)."""
+    import dataclasses
+
+    from repro_torch.serve import make_serve_steps, prefill_to_decode_caches
+
+    cfg, card, host = _card_and_host(arch, cuda)
+    cfg = dataclasses.replace(cfg, dtype=torch.float64)
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen)
+    frames = torch.randn((2, cfg.encoder_frames, cfg.d_model), generator=gen, dtype=torch.float64)
+    outs = []
+    for model, dev in ((card, cuda), (host, torch.device("cpu"))):
+        model.to(torch.float64)
+        model.cfg = cfg
+        extra = {"frames": frames.to(dev)} if cfg.family == "audio" else {}
+        prefill_fn, decode_fn, _ = make_serve_steps(model, batch=2, max_len=20)
+        logits, pc = prefill_fn({"tokens": tokens[:, :16].to(dev), **extra})
+        caches = prefill_to_decode_caches(cfg, model, pc, 2, 20, 16)
+        steps = [logits[:, 0]]
+        for t in range(16, 19):
+            _, logits_d, caches = decode_fn(tokens[:, t : t + 1].to(dev), caches, t)
+            steps.append(logits_d[:, 0])
+        outs.append(torch.stack(steps, 1))
+    assert outs[0].device.type == "cuda"
+    torch.testing.assert_close(outs[0].cpu(), outs[1], rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "xlstm-350m"])
+def test_train_step_on_the_card_matches_the_host(cuda, arch):
+    """Two train steps in fp64 from the same weights and batch on the card
+    and on the host: loss and gradient norm within 1e-6 and every
+    parameter within 1e-5 (the cross entropy and AdamW's moments are fp32
+    in both packages, so the two devices' fp32 sums show: the loss 9.3e-8
+    apart), gradients and moments on the card."""
+    import dataclasses
+
+    from repro_torch.models.layers import members, tree_leaves
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+
+    cfg, card, host = _card_and_host(arch, cuda)
+    cfg = dataclasses.replace(cfg, dtype=torch.float64)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 33),
+                                     generator=torch.Generator().manual_seed(3)).int()}
+    results = []
+    for model in (card, host):
+        model.to(torch.float64)
+        model.cfg = cfg
+        params = model.param_tree()
+        opt = init_opt_state(params)
+        step = make_train_step(model, AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10))
+        metrics = []
+        for _ in range(2):
+            params, opt, m = step(params, opt, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        devices = {t.device.type for leaf in tree_leaves(opt["m"]) for t in members(leaf)}
+        results.append((metrics, step.grad_devices, devices))
+    assert results[0][1] == results[0][2] == {"cuda"}
+    np.testing.assert_allclose(results[0][0], results[1][0], rtol=1e-6)
+    for (name, a), b in zip(card.state_dict().items(), host.state_dict().values()):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5, msg=name)

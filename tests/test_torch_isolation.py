@@ -39,6 +39,7 @@ VERBATIM = [
     "configs/gemma_2b.py", "configs/granite_3_2b.py", "configs/hymba_1_5b.py",
     "configs/internlm2_20b.py", "configs/internvl2_76b.py", "configs/qwen2_5_32b.py",
     "configs/whisper_tiny.py", "configs/xlstm_350m.py",
+    "checkpoint/__init__.py",
 ]
 
 
