@@ -113,6 +113,24 @@ Phases, each fatal on failure:
      restore not equal to the unbroken run's, a resumed loss more than
      1e-3 from the unbroken run's, or grad_accum=2 outside rtol 3e-2, atol
      3e-3 of 1;
+ 12. the mesh (repro_torch.launch.mesh, repro_torch.distributed):
+     make_host_mesh() on the card, an NCCL group of one rank, (data,
+     model) = (1, 1), where every collective is skipped and the step is the
+     one-card step operation for operation. granite-3-2b at full width
+     through repro_torch.launch.train.run (which builds that mesh) on phase
+     11's shards: 2 layers for 12 steps from phase 11's seed, held to its
+     unbroken run's losses; 40 layers for 6 timed steps and 2 profiled;
+     2 layers for 6 steps with compressed gradients through
+     make_train_step(model, mesh, rules, ...), held to phase 11's
+     compressed losses; compressed_psum of a [vocab, d_model] fp32 tensor
+     over the NCCL group against compress/decompress; then
+     make_serve_steps(model, mesh, rules, ...) on phase 10's weights and
+     prompts for 16 greedy steps, held to phase 10's tokens and logits.
+     Fatal: the group is not NCCL, a loss more than 1e-3 from phase 11's,
+     decode tokens not phase 10's or logits past its 5e-2 bound,
+     compressed_psum not the round trip, a parameter, gradient, moment or
+     cache off the card, a kernel that did not launch, or the engine erred
+     or fell back;
   then one JSON line of kernel results and, last, the {"ok": true, ...}
   line.
 
@@ -1496,6 +1514,11 @@ def serve_path(seed: int, card: str):
             retrieve(tok_host, t)
         loop_s = time.perf_counter() - t_loop
         reads_in_loop = dict(read)
+        # What phase 12's decode on the mesh is held to.
+        PHASE10_DECODE.update(
+            prefill=prefill_logits.float().cpu(),
+            tokens=torch.cat(fed[: MESH_SERVE_NEW + 1], dim=1).cpu(),
+            logits=torch.stack(step_logits[:MESH_SERVE_NEW], dim=1).float().cpu())
 
         # Decode steps with no read beside them: what the reads' host work
         # (stage 1 in the server's threads) costs the steps.
@@ -2086,6 +2109,274 @@ def train_path(seed: int, card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the mesh
+# ---------------------------------------------------------------------------
+
+MESH_LAYERS = 2  # the leg held to phase 11's unbroken run
+MESH_STEPS = 12
+MESH_FULL_STEPS = 6  # 40 layers, timed
+MESH_PROFILED = 2
+MESH_SERVE_NEW = 16  # greedy steps held to phase 10's
+PHASE10_DECODE: dict = {}
+
+
+def _tensors_on_card(tree) -> bool:
+    from repro_torch.models.layers import tree_tensors
+
+    return all(t.device.type == "cuda" for t in tree_tensors(tree))
+
+
+def mesh_path(seed: int, card: str, train: dict) -> dict:
+    """Phase 12: the train and serve steps on make_host_mesh(), NCCL at
+    world size 1: (data, model) = (1, 1) on the card. granite-3-2b at full
+    width trains through repro_torch.launch.train.run (which builds the
+    mesh) at 2 layers against phase 11's unbroken run, at 40 layers for
+    MESH_FULL_STEPS timed steps, and at 2 layers with compressed gradients
+    through make_train_step(model, mesh, rules, ...) against phase 11's
+    compressed leg; compressed_psum runs over the NCCL group; then
+    make_serve_steps(model, mesh, rules, ...) greedy-decodes against phase
+    10."""
+    import dataclasses
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import GzipCorpusDataset
+    from repro_torch.distributed import compress, compressed_psum, decompress, default_rules
+    from repro_torch.kernels import crc32 as kc
+    from repro_torch.kernels import marker_replace as mr
+    from repro_torch.kernels.engine import shared_engine
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serve import make_serve_steps, prefill_to_decode_caches
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="mesh-", dir=ROOT / "build"))
+    engine = shared_engine("cuda")
+    before = engine.stats()
+    mr.reset_launches()
+    kc.reset_launches()
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(device="cuda")
+    rules = default_rules(mesh)
+    backend = dist.get_backend()
+    out = {"card": card, "backend": backend, "world_size": dist.get_world_size(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+    relay = lambda line: log("mesh path [%s]: %s" % (card, line))  # noqa: E731
+    try:
+        corpus = work / "corpus"
+        corpus.mkdir()
+        for i in range(TRAIN_SHARDS):  # phase 11's shards, made again from the seed
+            (corpus / ("shard_%03d.gz" % i)).write_bytes(
+                gzip.compress(base64_corpus(seed + 70 + i, TRAIN_SHARD_MIB << 20), 6, mtime=0))
+        # (a) 2 layers against phase 11's unbroken run: its seed, batches, schedule
+        args = _driver_args(work, TRAIN_ARCH, MESH_STEPS, seed + 80, "--layers",
+                            str(MESH_LAYERS), "--lr", "3e-3")
+        short = launch.run(args, log=relay)
+        ref = train["restore"]["unbroken_losses"]
+        out["short"] = {"losses": short["losses"], "phase11_losses": ref,
+                        "max_abs_diff": float(np.max(np.abs(np.array(short["losses"])
+                                                            - np.array(ref)))),
+                        "devices": short["devices"], "backend": short["backend"]}
+        torch.cuda.empty_cache()
+        # 40 layers, timed
+        torch.cuda.reset_peak_memory_stats()
+        args = _driver_args(work, TRAIN_ARCH, MESH_FULL_STEPS + MESH_PROFILED, seed + 70,
+                            "--profile-steps", str(MESH_PROFILED))
+        full = launch.run(args, log=relay)
+        timed = [x * 1e3 for x in full["step_s"][1:MESH_FULL_STEPS]]
+        out["full"] = {"params": full["params"], "losses": full["losses"],
+                       "step_ms": {"p50": float(np.percentile(timed, 50)),
+                                   "p99": float(np.percentile(timed, 99)),
+                                   "first": full["step_s"][0] * 1e3,
+                                   "all": [x * 1e3 for x in full["step_s"]]},
+                       "tokens_per_s": args.batch * args.seq / (
+                           float(np.percentile(timed, 50)) / 1e3),
+                       "profile": full["profile"], "devices": full["devices"],
+                       "data_share": full["data_share"],
+                       "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        torch.cuda.empty_cache()
+        # compressed gradients, against phase 11's compressed leg
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RESTORE_LAYERS)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 83)
+        model = build_model(cfg, device="cuda")
+        params, opt = init_train_state(model, gen, compress_grads=True)
+        step_fn, shardings = make_train_step(
+            model, mesh, rules, AdamWConfig(peak_lr=3e-3, warmup_steps=5,
+                                            total_steps=RESTORE_STEPS), compress_grads=True)
+        ds = GzipCorpusDataset(sorted(glob.glob(str(corpus / "*.gz"))), seq_len=128,
+                               batch_size=8, parallelization=4, chunk_size=256 << 10,
+                               device="cuda")
+        comp, comp_ms = [], []
+        try:
+            for _ in range(COMPRESSED_STEPS):
+                batch = ds.next_batch()
+                t0 = time.perf_counter()
+                params, opt, m = step_fn(params, opt, batch)
+                comp.append(float(m["loss"]))
+                comp_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            ds.close()
+        ref = train["restore"]["compressed"]["losses"]
+        out["compressed"] = {"losses": comp, "phase11_losses": ref, "step_ms": comp_ms,
+                             "max_abs_diff": float(np.max(np.abs(np.array(comp)
+                                                                 - np.array(ref)))),
+                             "on_card": _tensors_on_card(params) and _tensors_on_card(
+                                 {k: opt[k] for k in ("m", "v", "grad_error")})}
+        del model, params, opt, step_fn
+        torch.cuda.empty_cache()
+        # compressed_psum over the NCCL group: a gradient-sized tensor
+        x = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device="cuda")
+        q, scale = compress(x)
+        got = compressed_psum(x, "data", mesh=mesh)
+        torch.cuda.synchronize()
+        reps = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            compressed_psum(x, "data", mesh=mesh)
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3)
+        out["compressed_psum"] = {"shape": list(x.shape), "equal": bool(torch.equal(
+            got, decompress(q, scale))), "ms_p50": float(np.percentile(reps, 50))}
+        del x, q, got
+        # (b) serve on the mesh, against phase 10's one-card decode
+        scfg = get_config(SERVE_ARCH)
+        B, P = SERVE_BATCH, SERVE_PROMPT
+        max_len = P + SERVE_NEW + SERVE_QUIET + SERVE_PROFILED  # phase 10's caches
+        sgen = torch.Generator(device="cuda")
+        sgen.manual_seed(seed + 40)
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(scfg, device="cuda").init(sgen)
+        prompts = torch.from_numpy(np.random.default_rng(seed + 40).integers(
+            0, scfg.vocab_size, (B, P), dtype=np.int64)).cuda()
+        prefill_fn, decode_fn, caches_abstract, sshard = make_serve_steps(
+            model, mesh, rules, batch=B, max_len=max_len)
+        params = model.param_tree()
+        t0 = time.perf_counter()
+        logits, pc = prefill_fn(params, {"tokens": prompts})
+        caches = prefill_to_decode_caches(scfg, model, pc, B, max_len, P)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        del pc
+        fed, steps, step_ms = [tok], [], []
+        for t in range(MESH_SERVE_NEW):
+            t1 = time.perf_counter()
+            tok, lg, caches = decode_fn(params, tok, caches, P + t)
+            tok.cpu()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            fed.append(tok)
+            steps.append(lg[:, 0].float().cpu())
+        got_logits = torch.stack(steps, dim=1)
+        ref_logits = PHASE10_DECODE["logits"]
+        out["serve"] = {
+            "prefill_ms": prefill_ms,
+            "decode_ms": {"p50": float(np.percentile(step_ms[1:], 50)),
+                          "p99": float(np.percentile(step_ms[1:], 99)), "all": step_ms},
+            "decode_tokens_per_s": B * (MESH_SERVE_NEW - 1) / (sum(step_ms[1:]) / 1e3),
+            "tokens_equal": bool(torch.equal(torch.cat(fed[: MESH_SERVE_NEW + 1], 1).cpu(),
+                                             PHASE10_DECODE["tokens"])),
+            "prefill_max_abs_diff": float((logits[:, 0].float().cpu()
+                                           - PHASE10_DECODE["prefill"]).abs().max()),
+            "logits_max_abs_diff": float((got_logits - ref_logits).abs().max()),
+            "logits_ratio": allclose_ratio(ref_logits, got_logits, SERVE_TOL),
+            "params_on_card": _tensors_on_card(params),
+            "caches_on_card": all(t.device.type == "cuda" for t in tree_leaves(caches)),
+            "caches_match_abstract": [tuple(a.shape) for a in tree_leaves(caches_abstract)] ==
+            [tuple(c.shape) for c in tree_leaves(caches)],
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del model, params, caches
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    after = engine.stats()
+    out["launches"] = {"marker_replace": mr.launches, "crc32": kc.launches}
+    out["engine"] = {"errors": after["errors"] - before["errors"],
+                     "fallbacks_before": before["fallbacks"], "fallbacks": after["fallbacks"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    problems = []
+    if backend != "nccl":
+        problems.append("the process group's backend is %s, not nccl" % backend)
+    if out["short"]["max_abs_diff"] > MESH_LOSS_TOL:
+        problems.append("the 2-layer losses on the mesh are %g from phase 11's"
+                        % out["short"]["max_abs_diff"])
+    if out["compressed"]["max_abs_diff"] > MESH_LOSS_TOL:
+        problems.append("the compressed losses on the mesh are %g from phase 11's"
+                        % out["compressed"]["max_abs_diff"])
+    losses = out["short"]["losses"] + out["full"]["losses"] + out["compressed"]["losses"]
+    if not all(np.isfinite(losses)):
+        problems.append("a loss is not finite")
+    for leg in (out["short"], out["full"]):
+        if any(v != ["cuda"] for v in leg["devices"].values()):
+            problems.append("a parameter, gradient or moment is off the card: %s"
+                            % leg["devices"])
+    if not out["compressed"]["on_card"]:
+        problems.append("a parameter, moment or error state of the compressed leg is off the "
+                        "card")
+    if not out["compressed_psum"]["equal"]:
+        problems.append("compressed_psum over NCCL differs from compress/decompress")
+    sv = out["serve"]
+    if not (sv["tokens_equal"] and sv["logits_ratio"] <= 1):
+        problems.append("decode on the mesh differs from phase 10's: tokens equal %s, logits "
+                        "%g of the bound" % (sv["tokens_equal"], sv["logits_ratio"]))
+    if not (sv["params_on_card"] and sv["caches_on_card"] and sv["caches_match_abstract"]):
+        problems.append("a served parameter or cache is off the card, or the caches differ "
+                        "from caches_abstract")
+    if min(out["launches"].values()) < 1:
+        problems.append("a kernel never launched on the mesh path: %s" % out["launches"])
+    if out["engine"]["errors"] or out["engine"]["fallbacks"] != before["fallbacks"]:
+        problems.append("the corpus engine erred or fell back: %s" % out["engine"])
+    if problems:
+        raise AssertionError("mesh path: %s; %s" % ("; ".join(problems), json.dumps(out)[:4000]))
+    return out
+
+
+# The mesh's losses against phase 11's: phase 11's own restore bound. At
+# world size 1 the two steps are one computation (measured 0 on an H100).
+MESH_LOSS_TOL = 1e-3
+
+
+def log_mesh(mesh: dict, card: str) -> None:
+    f, prof, sv = mesh["full"], mesh["full"]["profile"], mesh["serve"]
+    log("mesh path [%s]: backend %s, world size %d, mesh %s" % (
+        card, mesh["backend"], mesh["world_size"], json.dumps(mesh["mesh"])))
+    log("mesh path [%s]: 2 layers, %d steps: losses %s; phase 11 %s; max |diff| %.3g"
+        % (card, len(mesh["short"]["losses"]), json.dumps(mesh["short"]["losses"]),
+           json.dumps(mesh["short"]["phase11_losses"]), mesh["short"]["max_abs_diff"]))
+    log("mesh path [%s]: %s at full width (%d parameters), %d layers: step ms p50 %.3f p99 %.3f "
+        "over steps 2-%d (first %.3f), %.1f tokens/s, data share %.4f, max_memory_allocated %d; "
+        "%d profiled steps, device busy %.3f ms of %.3f s (idle share %s); losses %s"
+        % (card, TRAIN_ARCH, f["params"], 40, f["step_ms"]["p50"], f["step_ms"]["p99"],
+           MESH_FULL_STEPS, f["step_ms"]["first"], f["tokens_per_s"], f["data_share"],
+           f["max_memory_allocated"], prof["steps"], prof["device_busy_ms"], prof["wall_s"],
+           prof["device_idle_share"], json.dumps(f["losses"])))
+    log("mesh path [%s]: compressed, 2 layers: losses %s, phase 11 %s, max |diff| %.3g, step ms "
+        "%s; compressed_psum of %s over NCCL equal to compress/decompress %s, p50 %.3f ms"
+        % (card, json.dumps(mesh["compressed"]["losses"]),
+           json.dumps(mesh["compressed"]["phase11_losses"]), mesh["compressed"]["max_abs_diff"],
+           json.dumps(mesh["compressed"]["step_ms"]), mesh["compressed_psum"]["shape"],
+           mesh["compressed_psum"]["equal"], mesh["compressed_psum"]["ms_p50"]))
+    log("mesh path [%s]: serve, %d prompts of %d tokens, %d greedy steps: prefill %.3f ms, "
+        "decode ms p50 %.3f p99 %.3f (%.1f tokens/s); tokens equal to phase 10's %s, logits max "
+        "|diff| %.3g (%.3g of the %g bound), prefill %.3g; max_memory_allocated %d"
+        % (card, SERVE_BATCH, SERVE_PROMPT, MESH_SERVE_NEW, sv["prefill_ms"],
+           sv["decode_ms"]["p50"], sv["decode_ms"]["p99"], sv["decode_tokens_per_s"],
+           sv["tokens_equal"], sv["logits_max_abs_diff"], sv["logits_ratio"], SERVE_TOL,
+           sv["prefill_max_abs_diff"], sv["max_memory_allocated"]))
+    log("mesh path [%s]: launches %s; engine %s; seconds %.3f"
+        % (card, json.dumps(mesh["launches"]), json.dumps(mesh["engine"]), mesh["seconds"]))
+
+
 def log_train(train: dict, card: str) -> None:
     st, prof, rest = train["step_ms"], train["profile"], train["restore"]
     log("train path [%s]: %s at full width (%d parameters), batch %d x seq %d: step ms p50 %.3f "
@@ -2309,6 +2600,12 @@ def main() -> int:
     train = train_path(args.seed, card)
     log_train(train, card)
 
+    mesh = mesh_path(args.seed, card, train)
+    log_mesh(mesh, card)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # the NCCL group phases 11-12 started
+
     sources = {
         "marker_replace": ("src/repro_torch/kernels/csrc/marker_replace.cu",
                            "src/repro/kernels/marker_replace.py:101"),
@@ -2323,7 +2620,8 @@ def main() -> int:
     # the ops path only).
     by_path = {"main": path["launches"], "ops": ops["launches"], "service": service["launches"],
                "fleet": fleet["launches"], "pipeline": pipeline["launches"],
-               "serve": serve["launches"], "train": train["launches"]}
+               "serve": serve["launches"], "train": train["launches"],
+               "mesh": mesh["launches"]}
     checked = rows + at_path + precode_rows
     kernels = []
     for row in at_path:
@@ -2342,7 +2640,7 @@ def main() -> int:
             "card": card, "build_s": build_s, "launch_floor_ms": floor_ms, "kernel_rows": rows,
             "at_path": at_path, "main_path": path, "precode_rows": precode_rows, "ops_path": ops,
             "service_path": service, "fleet_path": fleet, "pipeline_path": pipeline,
-            "serve_path": serve, "train_path": train, "kernels": kernels,
+            "serve_path": serve, "train_path": train, "mesh_path": mesh, "kernels": kernels,
         }, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

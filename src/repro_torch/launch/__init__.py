@@ -1,3 +1,3 @@
-"""Launchers of the port. ``train`` is the training driver; the JAX
-package's mesh, dry-run and roofline launchers need a mesh and wait for
-the distributed slice (ROADMAP.md, queue 1)."""
+"""Launchers of the port: ``train`` is the training driver, ``mesh`` builds
+device meshes. The JAX package's dry-run and roofline launchers are not
+ported yet (ROADMAP.md, queue 1)."""

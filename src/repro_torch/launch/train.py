@@ -8,17 +8,31 @@ tokens -> train step on the card, with checkpoint/restart fault tolerance.
 The counterpart of ``repro.launch.train``: the same flags and printed
 lines, plus ``--device`` (``cuda`` by default, where stage 2 of the corpus
 reads and the model both run; ``cpu`` on request), ``--seed`` (the weights'
-generator; the JAX driver's key is 0) and ``--profile-steps``. On restart the
+generator; the JAX driver's key is 0), ``--layers`` (a cut of the config's
+depth) and ``--profile-steps``. On restart the
 driver restores model and optimizer state AND the data-pipeline seek state
 (O(1) thanks to the gzip seek index: the paper's random-access capability
 is what makes a data restart cheap). ``run(args)`` is the loop, returning
 what it measured; ``main`` parses the flags and prints.
+
+As the JAX driver does, it trains on ``make_host_mesh()`` with
+``default_rules``: every rank of the process group on (data, model) =
+(world, 1). In one process that is a group of one rank (NCCL on the card,
+gloo on the host), where the step computes what the one-device step
+computes; under ``python -m torch.distributed.run --nproc-per-node N -m
+repro_torch.launch.train ...`` it is N ranks of data parallelism with
+ZeRO-1. Every rank reads the same global batch from its own
+``GzipCorpusDataset`` and the step takes the rank's rows
+(``batch_partition``), so the batches are the JAX driver's and the
+one-rank run's and need no collective. Only rank 0 logs and writes
+checkpoints (every rank takes part in gathering them).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import glob
 import os
 import tempfile
@@ -31,9 +45,12 @@ import torch
 from ..checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
 from ..configs import all_configs, get_config, smoke_config
 from ..data import GzipCorpusDataset
+from ..distributed import default_rules
+from ..distributed.sharding import NamedSharding, P
 from ..models import build_model
 from ..models.layers import tree_tensors
 from ..train import AdamWConfig, init_train_state, make_train_step
+from .mesh import make_host_mesh
 
 
 def make_corpus(directory: str, n_shards: int = 2, shard_bytes: int = 1 << 20) -> None:
@@ -72,6 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="where the model and stage 2 of the corpus reads run (cuda | cpu)")
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights (and stub inputs)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config's depth to this many layers (0: the config's)")
     ap.add_argument("--profile-steps", type=int, default=0,
                     help="run the last N steps under torch.profiler and report device time")
     return ap
@@ -97,12 +116,22 @@ def run(args: argparse.Namespace, log=print) -> Dict[str, Any]:
     ``args.ckpt`` when there is one). Returns the per-step losses, data and
     step seconds, the data-pipeline share, and where parameters, moments
     and gradients lived."""
+    import torch.distributed as dist
+
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    mesh = make_host_mesh(device=args.device)
+    rules = default_rules(mesh)
+    if dist.get_rank() != 0:
+        log = lambda *a, **k: None  # noqa: E731
     model = build_model(cfg, device=args.device)
 
-    make_corpus(args.corpus)
+    if dist.get_rank() == 0:
+        make_corpus(args.corpus)
+    dist.barrier()
     shards = sorted(glob.glob(os.path.join(args.corpus, "*.gz")))
     ds = GzipCorpusDataset(
         shards,
@@ -115,24 +144,26 @@ def run(args: argparse.Namespace, log=print) -> Dict[str, Any]:
     gen = torch.Generator(device=model.device)
     gen.manual_seed(args.seed)
     params, opt = init_train_state(model, gen, compress_grads=args.compress_grads)
+    step_fn, shardings = make_train_step(
+        model, mesh, rules,
+        AdamWConfig(peak_lr=args.lr, warmup_steps=max(5, args.steps // 20), total_steps=args.steps),
+        grad_accum=args.grad_accum,
+        compress_grads=args.compress_grads,
+    )
+    opt = step_fn.place_opt_state(opt)
+    shardings = dict(shardings, data={k: NamedSharding(mesh, P()) for k in ds.state_dict()})
     start_step = 0
     if args.ckpt:
         path = latest_checkpoint(args.ckpt)
         if path:
             template = {"params": params, "opt": opt, "data": ds.state_dict()}
-            start_step, state = restore_checkpoint(path, template)
+            start_step, state = restore_checkpoint(path, template, shardings=shardings)
             opt = state["opt"]
             ds.load_state_dict(state["data"])
             log(f"[train] restored step {start_step} from {path}")
 
-    step_fn = make_train_step(
-        model,
-        AdamWConfig(peak_lr=args.lr, warmup_steps=max(5, args.steps // 20), total_steps=args.steps),
-        grad_accum=args.grad_accum,
-        compress_grads=args.compress_grads,
-    )
-
-    out: Dict[str, Any] = {"arch": cfg.name, "params": sum(p.numel() for p in model.parameters()),
+    out: Dict[str, Any] = {"arch": cfg.name, "params": cfg.param_count(),
+                           "world_size": dist.get_world_size(), "backend": dist.get_backend(),
                            "start_step": start_step, "losses": [], "data_s": [], "step_s": []}
     profiled_from = args.steps - args.profile_steps if args.profile_steps else None
     prof = None
@@ -166,7 +197,8 @@ def run(args: argparse.Namespace, log=print) -> Dict[str, Any]:
                         f"gnorm {float(metrics['grad_norm']):.2f}")
                 if args.ckpt and (step + 1) % args.ckpt_every == 0:
                     save_checkpoint(args.ckpt, step + 1,
-                                    {"params": params, "opt": opt, "data": ds.state_dict()})
+                                    {"params": params, "opt": opt, "data": ds.state_dict()},
+                                    shardings=shardings)
                     log(f"[train] checkpoint @ step {step + 1}")
             if prof is not None:
                 if model.device.type == "cuda":
@@ -204,7 +236,13 @@ def _device_time(prof, wall_s: float, steps: int) -> Dict[str, Any]:
 
 
 def main(argv: Optional[List[str]] = None) -> None:
-    run(build_parser().parse_args(argv))
+    import torch.distributed as dist
+
+    try:
+        run(build_parser().parse_args(argv))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
 from .model import EncDecModel, Model, XLSTMModel, build_model, cross_entropy
-from .transformer import init_caches
+from .transformer import ModelContext, init_caches
 
-__all__ = ["EncDecModel", "Model", "XLSTMModel", "build_model", "cross_entropy", "init_caches"]
+__all__ = ["EncDecModel", "Model", "ModelContext", "XLSTMModel", "build_model", "cross_entropy",
+           "init_caches"]

@@ -8,6 +8,13 @@ cross-attention (learned positions), GELU MLPs and the unembedding tied to
 ``embed``. The stacks are walked in Python loops; prefill computes each
 layer's cross K/V once and returns it in the cache, and decode reads it
 from there and writes the self-attention cache in place.
+
+With ``ctx`` on a mesh, attention runs on this rank's heads and the MLPs
+on its FFN columns (``transformer.tp_gqa_attention``, ``copy_to`` in and
+``psum`` out, the MLP's output bias added after the sum), the embedding
+and the tied logits on its vocabulary rows. The cross K/V cache keeps
+every head, as the JAX package's cache layout holds it: prefill gathers
+the heads, and decode reads the ones this rank's query heads need.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed import collectives
+from ..distributed.sharding import axis_index
 from .layers import (
     ParamDef,
     causal_attention,
@@ -42,9 +51,17 @@ def _plain_mlp_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
     }
 
 
-def _plain_mlp(p, x):
+def _plain_mlp(p, x, mesh=None):
+    """With ``mesh``, on this rank's FFN columns, summed over ``model``."""
+    x = collectives.copy_to(x, mesh, "model")
     h = gelu_tanh(torch.einsum("bsd,df->bsf", x, p["w1"]) + p["b1"])
-    return torch.einsum("bsf,fd->bsd", h, p["w2"]) + p["b2"]
+    return collectives.psum(torch.einsum("bsf,fd->bsd", h, p["w2"]), mesh, "model") + p["b2"]
+
+
+def _tp_mesh(ctx, sharded: int, full: int):
+    """The mesh when a weight's dim is this rank's block (``sharded`` of
+    ``full``), else None."""
+    return ctx.mesh if ctx is not None and sharded < full else None
 
 
 def _ln_defs(d: int) -> Dict[str, ParamDef]:
@@ -96,7 +113,15 @@ def _layer_cache(caches: Optional[Dict[str, Any]], i: int):
     return {k: _layer_cache(v, i) if isinstance(v, dict) else v[i] for k, v in caches.items()}
 
 
-def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+def _attn(cfg: ModelConfig, ctx, p, h, positions, **kw):
+    """Self-attention without rope; on a mesh over this rank's heads."""
+    from .transformer import tp_gqa_attention
+
+    return tp_gqa_attention(ctx, p, h, positions, n_heads=cfg.n_heads,
+                            n_kv_heads=cfg.n_kv_heads, use_rope=False, **kw)
+
+
+def encode(cfg: ModelConfig, params, frames: torch.Tensor, ctx=None) -> torch.Tensor:
     """frames: [B, T, D] stub embeddings -> encoder states."""
     T = frames.shape[1]
     pos = torch.from_numpy(_sinusoids(T, cfg.d_model)).to(device=frames.device, dtype=frames.dtype)
@@ -104,15 +129,17 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     zeros = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
     for p in params["encoder"]:
         h = layer_norm(x, p["ln1"]["w"], p["ln1"]["b"])
-        attn, _ = gqa_attention_block(p["attn"], h, zeros, causal=False, use_rope=False)
+        attn, _ = _attn(cfg, ctx, p["attn"], h, zeros, causal=False)
         x_mid = x + attn
         h2 = layer_norm(x_mid, p["ln2"]["w"], p["ln2"]["b"])
-        x = x_mid + _plain_mlp(p["mlp"], h2)
+        x = x_mid + _plain_mlp(p["mlp"], h2, _tp_mesh(ctx, p["mlp"]["w1"].shape[1], cfg.d_ff))
     return layer_norm(x, params["enc_ln"]["w"], params["enc_ln"]["b"])
 
 
-def _cross(p, x, enc_k, enc_v):
+def _cross(p, x, enc_k, enc_v, kv_index=None):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"]) + p["bq"]
+    if kv_index is not None:
+        enc_k, enc_v = enc_k[:, :, kv_index], enc_v[:, :, kv_index]
     out = causal_attention(q, enc_k, enc_v, causal=False)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
@@ -126,27 +153,51 @@ def _enc_kv(p, enc):
     return k, v
 
 
+def _cross_block(cfg: ModelConfig, ctx, p, h, enc, cache, mode: str):
+    """Cross attention: (its output, the cross K/V of every head for the
+    cache). On a mesh over this rank's query heads; their K/V heads are
+    its block when the K/V heads shard, else read from the whole."""
+    mesh = _tp_mesh(ctx, p["wq"].shape[1], cfg.n_heads)
+    n_local = p["wq"].shape[1]
+    kv_split = mesh is not None and p["wk"].shape[1] < cfg.n_kv_heads
+    kv_index = None
+    if mesh is not None and (mode == "decode" or not kv_split):
+        first = axis_index(mesh, "model") * n_local
+        kv_index = (first + torch.arange(n_local, device=h.device)) // (
+            cfg.n_heads // cfg.n_kv_heads)
+    if mode == "decode":
+        enc_k, enc_v = cache["cross_k"], cache["cross_v"]
+    else:
+        if mesh is not None and not kv_split:  # whole K/V weights read by some heads only
+            from .transformer import _with
+
+            p = _with(p, **{k: collectives.copy_to(p[k], mesh, "model")
+                            for k in ("wk", "wv", "bk", "bv")})
+        enc_k, enc_v = _enc_kv(p, collectives.copy_to(enc, mesh, "model"))
+    out = _cross_with_kv(p, collectives.copy_to(h, mesh, "model"), enc_k, enc_v, kv_index)
+    if mode == "prefill" and kv_split:  # the cache keeps every head
+        enc_k = collectives.all_gather(enc_k, mesh, "model", dim=2)
+        enc_v = collectives.all_gather(enc_v, mesh, "model", dim=2)
+    return collectives.psum(out, mesh, "model"), enc_k, enc_v
+
+
 def decoder_layer(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
                   enc: Optional[torch.Tensor], *, mode: str, cache=None,
-                  cache_pos: Optional[int] = None):
+                  cache_pos: Optional[int] = None, ctx=None):
     """One decoder layer: (its output, its cache) — prefill's self K/V and
     cross K/V, decode's ``cache`` written in place, train's None."""
     h = layer_norm(x, p["ln1"]["w"], p["ln1"]["b"])
-    self_out, self_cache = gqa_attention_block(
-        p["self_attn"], h, positions,
-        mode=mode, cache=cache["attn"] if cache else None,
-        cache_pos=cache_pos, use_rope=False,
+    self_out, self_cache = _attn(
+        cfg, ctx, p["self_attn"], h, positions,
+        mode=mode, cache=cache["attn"] if cache else None, cache_pos=cache_pos,
         q_chunk=cfg.attn_q_chunk if mode != "decode" else None,
     )
     x_mid = x + self_out
     h2 = layer_norm(x_mid, p["ln2"]["w"], p["ln2"]["b"])
-    if mode == "decode":
-        enc_k, enc_v = cache["cross_k"], cache["cross_v"]
-    else:
-        enc_k, enc_v = _enc_kv(p["cross_attn"], enc)
-    x_mid = x_mid + _cross_with_kv(p["cross_attn"], h2, enc_k, enc_v)
+    cross_out, enc_k, enc_v = _cross_block(cfg, ctx, p["cross_attn"], h2, enc, cache, mode)
+    x_mid = x_mid + cross_out
     h3 = layer_norm(x_mid, p["ln3"]["w"], p["ln3"]["b"])
-    x_out = x_mid + _plain_mlp(p["mlp"], h3)
+    x_out = x_mid + _plain_mlp(p["mlp"], h3, _tp_mesh(ctx, p["mlp"]["w1"].shape[1], cfg.d_ff))
     if mode == "prefill":
         return x_out, {"attn": self_cache, "cross_k": enc_k, "cross_v": enc_v}
     return x_out, cache
@@ -161,10 +212,14 @@ def decode_stack(
     mode: str = "train",
     caches: Optional[Dict[str, Any]] = None,
     cache_pos: Optional[int] = None,
+    ctx=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (logits, caches): prefill's per-layer caches stacked
     ``[L, ...]`` (self-attention K/V and the cross K/V), decode's the
-    ``caches`` given, written in place at ``cache_pos``."""
+    ``caches`` given, written in place at ``cache_pos``. With ``ctx``, the
+    logits are this rank's vocabulary columns when the vocabulary shards."""
+    from .transformer import sharded_embed_lookup
+
     B, S = tokens.shape
     dev = tokens.device
     if mode == "decode":
@@ -173,14 +228,16 @@ def decode_stack(
     else:
         positions = torch.arange(S, device=dev)[None, :].expand(B, S)
         pos_ids = torch.arange(S, device=dev)
-    x = params["embed"][tokens] + params["pos_embed"][pos_ids][None]
+    x = sharded_embed_lookup(ctx, params["embed"], tokens, cfg.vocab_size) + \
+        params["pos_embed"][pos_ids][None]
 
     per_layer = []
     for i, p in enumerate(params["decoder"]):
         x, cache_out = decoder_layer(cfg, p, x, positions, enc, mode=mode,
-                                     cache=_layer_cache(caches, i), cache_pos=cache_pos)
+                                     cache=_layer_cache(caches, i), cache_pos=cache_pos, ctx=ctx)
         per_layer.append(cache_out)
     x = layer_norm(x, params["dec_ln"]["w"], params["dec_ln"]["b"])
+    x = collectives.copy_to(x, _tp_mesh(ctx, params["embed"].shape[0], cfg.vocab_size), "model")
     logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
     if mode == "prefill":
         return logits, {"attn": {k: torch.stack([c["attn"][k] for c in per_layer])

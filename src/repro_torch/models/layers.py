@@ -433,6 +433,7 @@ def ring_attention_decode(
     *,
     sliding_window: int,
     softmax_scale: Optional[float] = None,
+    kv_index: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Sliding-window decode against a ring buffer of size W, updated in
     place: slot ``p % W`` holds position ``p``, and the per-slot position
@@ -445,6 +446,8 @@ def ring_attention_decode(
     k_cache[:, slot] = k_new[:, 0]
     v_cache[:, slot] = v_new[:, 0]
     pos[slot] = position
+    if kv_index is not None:
+        k_cache, v_cache = k_cache[:, :, kv_index], v_cache[:, :, kv_index]
     kv_heads = k_cache.shape[2]
     g = h // kv_heads
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
@@ -470,8 +473,13 @@ def gqa_attention_block(
     softmax_scale: Optional[float] = None,
     causal: bool = True,
     use_rope: bool = True,
+    kv_index: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """GQA attention with rope; returns (y, cache_out).
+
+    ``kv_index`` (a rank's block of query heads under tensor parallelism,
+    its KV heads whole) names the KV head each query head reads; the
+    caches keep every KV head.
 
     * train:   cache_out is None.
     * prefill: cache_out = {"k","v"} post-rope full-sequence tensors.
@@ -496,22 +504,26 @@ def gqa_attention_block(
             out, new_cache = ring_attention_decode(
                 q, cache, k, v, cache_pos,
                 sliding_window=sliding_window or cache["k"].shape[1],
-                softmax_scale=softmax_scale,
+                softmax_scale=softmax_scale, kv_index=kv_index,
             )
         else:
             cache["k"][:, cache_pos] = k[:, 0]
             cache["v"][:, cache_pos] = v[:, 0]
             new_cache = cache
             kv_len = torch.full((x.shape[0],), cache_pos + 1, dtype=torch.int32, device=x.device)
+            k_all, v_all = cache["k"], cache["v"]
+            if kv_index is not None:
+                k_all, v_all = k_all[:, :, kv_index], v_all[:, :, kv_index]
             out = causal_attention(
-                q, cache["k"], cache["v"],
+                q, k_all, v_all,
                 q_offset=cache_pos, kv_len=kv_len,
                 sliding_window=sliding_window,
                 softmax_scale=softmax_scale, causal=causal,
             )
     else:
+        k_att, v_att = (k, v) if kv_index is None else (k[:, :, kv_index], v[:, :, kv_index])
         out = causal_attention(
-            q, k, v,
+            q, k_att, v_att,
             sliding_window=sliding_window, q_chunk=q_chunk,
             softmax_scale=softmax_scale, causal=causal,
         )

@@ -6,9 +6,13 @@
     decode_step(tokens, caches, cache_pos)     (caches updated in place)
 
 The counterpart of ``repro.models.model``. A model holds its parameters
-(an ``nn.Module`` on one device), where the JAX facade takes a parameter
-tree per call; ``param_tree()`` gives them as the JAX package's tree (for
-the optimizer and the checkpoint). Families: dense / moe / hybrid / vlm ->
+(an ``nn.Module``), where the JAX facade takes a parameter tree per call;
+``param_tree()`` gives them as the JAX package's tree (for the optimizer
+and the checkpoint). Each entry point takes ``ctx``
+(``transformer.ModelContext``): off a mesh (None) the model runs on one
+device; on a mesh its parameters and inputs are this rank's blocks
+(``train.train_step.place_model``) and the loss and its metrics are the
+global batch's. Families: dense / moe / hybrid / vlm ->
 ``Model`` over ``transformer.py`` (vlm with prefix embeddings); ssm
 (xLSTM) -> ``XLSTMModel`` over ``xlstm.py``; audio (Whisper) ->
 ``EncDecModel`` over ``encdec.py``.
@@ -21,9 +25,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed import collectives
+from ..distributed.sharding import axis_index, constrain
 from ..kernels._build import resolve_device
 from . import encdec, transformer, xlstm
 from .layers import ParamDef, ParamTree, abstract_tree, logical_tree, rms_norm, stack_defs, tree_map
+from .transformer import ModelContext
 
 
 def cross_entropy(
@@ -31,20 +38,57 @@ def cross_entropy(
     labels: torch.Tensor,  # [B, S] int; negative = masked
     *,
     z_loss: float = 1e-4,
+    ctx: Optional[ModelContext] = None,
+    vocab: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token NLL over the unmasked labels, in fp32, plus the
-    ``z_loss`` term on the log-partition."""
+    ``z_loss`` term on the log-partition.
+
+    With ``ctx`` on a mesh, ``logits`` are this rank's rows and, when the
+    vocabulary (``vocab``) shards over ``model``, its columns (the fp32 logits stay on
+    the ("batch", None, "vocab") layout: the log-partition takes a max and
+    a sum over ``model``, the label's logit a masked pick summed over
+    ``model``); the sums over the rows run over the DP axes, forward only,
+    so each rank's gradient is its rows' share of the global loss's.
+    """
     mask = (labels >= 0).float()
     safe = labels.clamp(min=0).long()
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    picked = lf.gather(-1, safe[..., None])[..., 0]
+    mesh = ctx.mesh if ctx is not None else None
+    if mesh is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        picked = lf.gather(-1, safe[..., None])[..., 0]
+        nll = (lse - picked) * mask
+        denom = mask.sum().clamp(min=1.0)
+        loss = nll.sum() / denom
+        metrics = {"nll": loss, "tokens": denom}
+        if z_loss:
+            zl = z_loss * (lse.square() * mask).sum() / denom
+            loss = loss + zl
+            metrics["z_loss"] = zl
+        return loss, metrics
+    lf = constrain(lf, ctx.rules, "batch", None, "vocab")
+    if vocab is not None and lf.shape[-1] < vocab:
+        from torch.distributed import ReduceOp
+
+        v_l = lf.shape[-1]
+        m = collectives.all_reduce_(lf.detach().amax(-1, keepdim=True), mesh, "model",
+                                    op=ReduceOp.MAX)
+        lse = m[..., 0] + torch.log(collectives.psum(torch.exp(lf - m).sum(-1), mesh, "model"))
+        rel = safe - axis_index(mesh, "model") * v_l
+        ok = (rel >= 0) & (rel < v_l)
+        picked = lf.gather(-1, rel.clamp(0, v_l - 1)[..., None])[..., 0]
+        picked = collectives.psum(torch.where(ok, picked, 0.0), mesh, "model")
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        picked = lf.gather(-1, safe[..., None])[..., 0]
+    rows = ctx.batch_axes
     nll = (lse - picked) * mask
-    denom = mask.sum().clamp(min=1.0)
-    loss = nll.sum() / denom
+    denom = collectives.all_reduce_(mask.sum(), mesh, *rows).clamp(min=1.0)
+    loss = collectives.psum(nll.sum(), mesh, *rows) / denom
     metrics = {"nll": loss, "tokens": denom}
     if z_loss:
-        zl = z_loss * (lse.square() * mask).sum() / denom
+        zl = z_loss * collectives.psum((lse.square() * mask).sum(), mesh, *rows) / denom
         loss = loss + zl
         metrics["z_loss"] = zl
     return loss, metrics
@@ -122,37 +166,41 @@ class Model(_Facade):
     def _prefix(self, batch) -> Optional[torch.Tensor]:
         return batch["patches"] if self.cfg.family == "vlm" else None
 
-    def logits(self, batch) -> torch.Tensor:
+    def logits(self, batch, ctx: Optional[ModelContext] = None) -> torch.Tensor:
         """Train-mode (teacher-forced) logits of every position of
         ``batch["tokens"]``."""
         prefix = self._prefix(batch)
         logits = transformer.forward(self.cfg, self, batch["tokens"], mode="train",
-                                     prefix_embeds=prefix)[0]
+                                     prefix_embeds=prefix, ctx=ctx)[0]
         return logits if prefix is None else logits[:, prefix.shape[1] :]
 
-    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def loss(self, batch, ctx: Optional[ModelContext] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         prefix = self._prefix(batch)
         logits, aux, _ = transformer.forward(
-            self.cfg, self, inputs, mode="train", prefix_embeds=prefix
+            self.cfg, self, inputs, mode="train", prefix_embeds=prefix, ctx=ctx
         )
         if prefix is not None:
             logits = logits[:, prefix.shape[1] :]
-        ce, metrics = cross_entropy(logits, labels)
+        ce, metrics = cross_entropy(logits, labels, ctx=ctx, vocab=self.cfg.vocab_size)
         total = ce + 0.01 * aux
         metrics["aux_loss"] = aux
         return total, metrics
 
-    def prefill(self, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def prefill(self, batch, ctx: Optional[ModelContext] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         logits, _, caches = transformer.forward(
-            self.cfg, self, batch["tokens"], mode="prefill", prefix_embeds=self._prefix(batch)
+            self.cfg, self, batch["tokens"], mode="prefill", prefix_embeds=self._prefix(batch),
+            ctx=ctx,
         )
         return logits[:, -1:], caches
 
-    def decode_step(self, tokens, caches, cache_pos: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def decode_step(self, tokens, caches, cache_pos: int, ctx: Optional[ModelContext] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         logits, _, caches = transformer.forward(
-            self.cfg, self, tokens, mode="decode", caches=caches, cache_pos=cache_pos
+            self.cfg, self, tokens, mode="decode", caches=caches, cache_pos=cache_pos, ctx=ctx
         )
         return logits, caches
 
@@ -211,20 +259,27 @@ class XLSTMModel(_Facade):
                                for k in ("c", "n", "m")}
         return logits, caches
 
-    def logits(self, batch) -> torch.Tensor:
+    def logits(self, batch, ctx: Optional[ModelContext] = None) -> torch.Tensor:
         """Train-mode (teacher-forced) logits of every position of
         ``batch["tokens"]``."""
+        _data_parallel_only(ctx, self.cfg)
         return self._run(batch["tokens"], mode="train")[0]
 
-    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def loss(self, batch, ctx: Optional[ModelContext] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         tokens = batch["tokens"]
-        return cross_entropy(self.logits({"tokens": tokens[:, :-1]}), tokens[:, 1:])
+        return cross_entropy(self.logits({"tokens": tokens[:, :-1]}, ctx), tokens[:, 1:],
+                             ctx=ctx)
 
-    def prefill(self, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def prefill(self, batch, ctx: Optional[ModelContext] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        _data_parallel_only(ctx, self.cfg)
         logits, caches = self._run(batch["tokens"], mode="prefill")
         return logits[:, -1:], caches
 
-    def decode_step(self, tokens, caches, cache_pos: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def decode_step(self, tokens, caches, cache_pos: int, ctx: Optional[ModelContext] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        _data_parallel_only(ctx, self.cfg)
         return self._run(tokens, mode="decode", caches=caches)
 
     def init_decode_caches(self, batch: int, max_len: int, device=None) -> Dict[str, Any]:
@@ -255,29 +310,40 @@ class EncDecModel(_Facade):
     def __init__(self, cfg: ModelConfig, device):
         super().__init__(cfg, device, ("encoder", "decoder"))
 
-    def logits(self, batch) -> torch.Tensor:
+    def logits(self, batch, ctx: Optional[ModelContext] = None) -> torch.Tensor:
         """Train-mode (teacher-forced) logits of every position of
         ``batch["tokens"]``, after encoding ``batch["frames"]``."""
-        enc = encdec.encode(self.cfg, self, batch["frames"])
-        return encdec.decode_stack(self.cfg, self, batch["tokens"], enc, mode="train")[0]
+        enc = encdec.encode(self.cfg, self, batch["frames"], ctx)
+        return encdec.decode_stack(self.cfg, self, batch["tokens"], enc, mode="train",
+                                   ctx=ctx)[0]
 
-    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def loss(self, batch, ctx: Optional[ModelContext] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         tokens = batch["tokens"]
-        logits = self.logits({"tokens": tokens[:, :-1], "frames": batch["frames"]})
-        return cross_entropy(logits, tokens[:, 1:])
+        logits = self.logits({"tokens": tokens[:, :-1], "frames": batch["frames"]}, ctx)
+        return cross_entropy(logits, tokens[:, 1:], ctx=ctx, vocab=self.cfg.vocab_size)
 
-    def prefill(self, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        enc = encdec.encode(self.cfg, self, batch["frames"])
-        logits, caches = encdec.decode_stack(self.cfg, self, batch["tokens"], enc, mode="prefill")
+    def prefill(self, batch, ctx: Optional[ModelContext] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        enc = encdec.encode(self.cfg, self, batch["frames"], ctx)
+        logits, caches = encdec.decode_stack(self.cfg, self, batch["tokens"], enc, mode="prefill",
+                                             ctx=ctx)
         return logits[:, -1:], caches
 
-    def decode_step(self, tokens, caches, cache_pos: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def decode_step(self, tokens, caches, cache_pos: int, ctx: Optional[ModelContext] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         return encdec.decode_stack(self.cfg, self, tokens, None, mode="decode", caches=caches,
-                                   cache_pos=cache_pos)
+                                   cache_pos=cache_pos, ctx=ctx)
 
     def init_decode_caches(self, batch: int, max_len: int, device=None) -> Dict[str, Any]:
         return encdec.init_decoder_caches(self.cfg, batch, max_len, self.cfg.encoder_frames,
                                           device=self.device if device is None else device)
+
+
+def _data_parallel_only(ctx: Optional[ModelContext], cfg: ModelConfig) -> None:
+    if ctx is not None and ctx.tp > 1:
+        raise NotImplementedError("tensor parallelism of the xLSTM forms (%s) is not ported; "
+                                  "run it on a mesh with model = 1" % cfg.name)
 
 
 FAMILIES = {"ssm": XLSTMModel, "audio": EncDecModel}

@@ -1,19 +1,31 @@
-"""Mixture-of-Experts layer (DeepSeek-style) on one device, on PyTorch.
+"""Mixture-of-Experts layer (DeepSeek-style) with explicit expert
+parallelism, on PyTorch.
 
-The counterpart of ``repro.models.moe``: it computes what the JAX layer
-computes at ``ep = tp = 1`` (experts and token-slot pairs on one device),
-without its collectives. Expert parallelism over several cards waits for
-the distributed slice.
+The counterpart of ``repro.models.moe``: the JAX layer's ``shard_map``
+region, written out per rank. Off a mesh it runs at ``ep = tp = 1``
+(experts and token-slot pairs on one device, no collective).
 
-Routing runs in fp32: softmax, top-k, renormalised with a 1e-9 floor, and
-the Switch/GShard load-balancing aux loss. Token-slot pairs (token-major:
-pair ``t * k + j`` is token ``t``'s ``j``-th expert) go through the JAX
-layer's two capacity-bounded dispatches exactly as written: the first,
-to the expert-owning shard, has ``cap1 = max(8, ceil(T * k * cf))`` slots
-(it drops nothing when ``cf >= 1``); the second, onto the experts, has
-``cap2 = max(8, ceil(cap1 / E * cf))`` slots per expert, assigned in pair
-order, and drops the pairs past it. The capacity factor is applied twice,
-as in the JAX layer.
+Sharding (as in the JAX package):
+  * experts sharded over the ``data`` axis (EP): the dispatch is an
+    all-to-all over ``data``;
+  * token-slot pairs additionally split over the ``model`` axis, so the
+    dispatch volume per rank is T * k * D / (ep * tp);
+  * expert weights are replicated over ``model`` within a data row (their
+    gradient is summed over ``model``: each model rank runs its own pairs);
+  * shared experts run as a plain TP MLP (``transformer._mlp``).
+
+Routing runs in fp32, per local token shard: softmax, top-k, renormalised
+with a 1e-9 floor, and the Switch/GShard load-balancing aux loss, whose
+mean over the DP axes is the layer's (the ``pmean``s of the JAX layer; its
+mean over ``model`` averages equal values and is left out). Token-slot
+pairs (token-major: pair ``t * k + j`` is token ``t``'s ``j``-th expert,
+padded to a multiple of ``tp``) go through the JAX layer's two
+capacity-bounded dispatches exactly as written: the first, to the
+expert-owning ``data`` shard, has ``cap1 = max(8, ceil(P_l / ep * cf))``
+slots per shard; the second, onto the local experts, ``cap2 = max(8,
+ceil(ep * cap1 / E_l * cf))`` slots per expert, assigned in pair order,
+and drops the pairs past it. Capacity dropping therefore depends on the
+mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +35,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..distributed import collectives
+from ..distributed.sharding import axis_index, axis_size, mesh_shape
 from .layers import ParamDef, act_fn, at_least_fp32
 
 
@@ -74,20 +88,27 @@ def _dispatch(flat_idx: torch.Tensor, values: torch.Tensor, n_dest: int, capacit
 
 def moe_layer(
     params: Dict[str, Any],
-    x: torch.Tensor,  # [B, S, D]
+    x: torch.Tensor,  # [B, S, D]: this rank's rows, replicated over model
     *,
     top_k: int,
     capacity_factor: float = 1.25,
     activation: str = "silu",
+    mesh=None,
+    dp_axes: Tuple[str, ...] = ("data",),
+    ep_axis: str = "data",
+    tp_axis: str = "model",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed experts. Returns (y, aux_loss)."""
-    n_experts = params["w_gate"].shape[0]
+    n_experts = params["router"].shape[-1]
+    ep, tp = axis_size(mesh, ep_axis), axis_size(mesh, tp_axis)
+    assert n_experts % ep == 0, (n_experts, ep)
+    e_local = n_experts // ep
+    batch_axes = tuple(a for a in dp_axes if a in mesh_shape(mesh))
     B, S, D = x.shape
     T = B * S
     xf = x.reshape(T, D)
-    ep, e_local = 1, n_experts
 
-    # ---- routing -----------------------------------------------------------
+    # ---- routing (computed redundantly per model shard; cheap) -------------
     logits = at_least_fp32(xf) @ params["router"]
     probs = torch.softmax(logits, dim=-1)
     w_topk, idx_topk = torch.topk(probs, top_k, dim=-1)  # [T, k]
@@ -99,45 +120,70 @@ def moe_layer(
     ce = ce / torch.clamp(ce.sum(), min=1.0)
     aux = n_experts * torch.sum(me * ce)
 
-    # ---- token-slot pairs, token-major ---------------------------------------
+    # ---- token-slot pairs, token-major, split over the model axis -----------
     pair_token = torch.arange(T, device=x.device).repeat_interleave(top_k)
     pair_expert = idx_topk.reshape(-1)
     pair_w = w_topk.reshape(-1)
     n_pairs = T * top_k
+    if tp > 1:
+        # A replicated input enters the model-split pairs: its gradient is
+        # the sum of every model rank's pairs.
+        xf_in = collectives.copy_to(xf, mesh, tp_axis)
+        pad = -(-n_pairs // tp) * tp - n_pairs
+        pair_token = torch.nn.functional.pad(pair_token, (0, pad))
+        pair_expert = torch.nn.functional.pad(pair_expert, (0, pad), value=-1)
+        pair_w = torch.nn.functional.pad(collectives.copy_to(pair_w, mesh, tp_axis), (0, pad))
+        p_l = (n_pairs + pad) // tp
+        mine = slice(axis_index(mesh, tp_axis) * p_l, (axis_index(mesh, tp_axis) + 1) * p_l)
+        pair_token, pair_expert, pair_w = pair_token[mine], pair_expert[mine], pair_w[mine]
+    else:
+        xf_in, p_l = xf, n_pairs
 
-    # ---- first dispatch: to the expert-owning shard (one here) ---------------
-    cap1 = max(8, int(math.ceil(n_pairs / ep * capacity_factor)))
+    # ---- first dispatch: to the expert-owning data shards ----------------------
+    cap1 = max(8, int(math.ceil(p_l / ep * capacity_factor)))
     dest = torch.where(pair_expert >= 0, pair_expert // e_local, -1)
-    x_pairs = xf[pair_token]  # [P, D]
+    x_pairs = xf_in[pair_token]  # [P_l, D]
     send_x, slot1, valid1 = _dispatch(dest, x_pairs, ep, cap1)
     meta = torch.where(valid1, pair_expert % e_local, -1)
     send_m, _, _ = _dispatch(dest, meta, ep, cap1, fill=-1)
-    recv_x = send_x.reshape(ep * cap1, D)
-    recv_m = send_m.reshape(ep * cap1)
+    recv_x = collectives.all_to_all(send_x, mesh, ep_axis).reshape(ep * cap1, D)
+    recv_m = collectives.all_to_all(send_m, mesh, ep_axis).reshape(ep * cap1)
 
-    # ---- second dispatch: onto the experts -----------------------------------
+    # ---- second dispatch: onto the local experts -------------------------------
     cap2 = max(8, int(math.ceil(ep * cap1 / e_local * capacity_factor)))
-    xe, slot2, valid2 = _dispatch(recv_m, recv_x, e_local, cap2)  # [E, C2, D]
+    xe, slot2, valid2 = _dispatch(recv_m, recv_x, e_local, cap2)  # [E_l, C2, D]
 
-    # ---- grouped expert MLP ----------------------------------------------------
+    # ---- grouped expert MLP ------------------------------------------------------
     a = act_fn(activation)
-    gate = torch.einsum("ecd,edf->ecf", xe, params["w_gate"])
-    up = torch.einsum("ecd,edf->ecf", xe, params["w_up"])
-    ye = torch.einsum("ecf,efd->ecd", a(gate) * up, params["w_down"])  # [E, C2, D]
+    w_gate, w_up, w_down = (collectives.copy_to(params[k], mesh, tp_axis)
+                            for k in ("w_gate", "w_up", "w_down"))
+    gate = torch.einsum("ecd,edf->ecf", xe, w_gate)
+    up = torch.einsum("ecd,edf->ecf", xe, w_up)
+    ye = torch.einsum("ecf,efd->ecd", a(gate) * up, w_down)  # [E_l, C2, D]
 
-    # ---- inverse path ------------------------------------------------------------
+    # ---- inverse path --------------------------------------------------------------
     e_ids = torch.where(recv_m >= 0, recv_m, 0)
     row2 = torch.where(valid2, slot2, cap2 - 1)
     back = ye[e_ids, row2] * valid2[:, None].to(ye.dtype)  # [ep*cap1, D]
-    ret = back.reshape(ep, cap1, D)
+    ret = collectives.all_to_all(back.reshape(ep, cap1, D), mesh, ep_axis)
     d1 = torch.where(valid1, dest, 0)
     r1 = torch.where(valid1, slot1, 0)
     pair_out = ret[d1, torch.clamp(r1, max=cap1 - 1)] * valid1[:, None].to(ret.dtype)
     pair_out = pair_out * pair_w[:, None].to(pair_out.dtype)
+    pair_out = torch.where(valid1[:, None], pair_out, 0)
 
-    # combine the pairs back onto their tokens, in pair order
-    pair_out = torch.where(valid1[:, None], pair_out, 0).reshape(T, top_k, D)
-    y = torch.zeros((T, D), dtype=pair_out.dtype, device=x.device)
-    for j in range(top_k):
-        y = y + pair_out[:, j]
+    # combine the pairs back onto their tokens, in pair order; then sum over
+    # the model shards
+    if tp > 1:
+        y = torch.zeros((T, D), dtype=pair_out.dtype, device=x.device).index_add(
+            0, pair_token, pair_out)
+        y = collectives.psum(y, mesh, tp_axis)
+    else:
+        pair_out = pair_out.reshape(T, top_k, D)
+        y = torch.zeros((T, D), dtype=pair_out.dtype, device=x.device)
+        for j in range(top_k):
+            y = y + pair_out[:, j]
+    aux = collectives.pmean(aux, mesh, *batch_axes)
+    if ep > 1 and ep_axis not in batch_axes:
+        aux = collectives.pmean(aux, mesh, ep_axis)
     return y.reshape(B, S, D).to(x.dtype), aux

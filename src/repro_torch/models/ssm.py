@@ -12,6 +12,16 @@ same fp32 operations in the same order as the JAX package.
 
 Decode carries O(1) state: the SSM state [B, d_inner, N] plus the causal
 conv tail [B, K-1, d_inner].
+
+With ``mesh`` (tensor parallelism), the ``ssm_inner`` channels are this
+rank's block of ``model``: ``w_in`` packs z and x in one ``ssm_inner``
+dim, so its output blocks are gathered (``collectives.gather_to``) and each
+rank takes its channels of z and of x; ``w_bc`` contracts the channels
+(summed over ``model``, forward and backward, since each rank reads the
+sum with its own channels), the scan runs on this rank's channels, and
+``w_out``'s partial result is summed over ``model``. The state keeps this
+rank's channels; the conv tail, replicated as the JAX package's cache
+layout holds it, is gathered back whole.
 """
 
 from __future__ import annotations
@@ -21,6 +31,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import collectives
+from ..distributed.sharding import axis_index
 from .layers import ParamDef, at_least_fp32, silu
 
 CONV_K = 4  # causal depthwise conv kernel (mamba default)
@@ -98,20 +110,37 @@ def selective_ssm(
     *,
     chunk: int = 256,
     state: Optional[Dict[str, torch.Tensor]] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Mamba-style selective scan. Returns (y [B,S,D_model], new_state)."""
+    """Mamba-style selective scan. Returns (y [B,S,D_model], new_state).
+    With ``mesh``, over this rank's channels of ``model`` (module doc)."""
     B, S, _ = x.shape
     d_inner = params["w_in"].shape[-1] // 2
     n_state = params["a_log"].shape[-1]
 
-    zx = torch.einsum("bsd,de->bse", x, params["w_in"])
-    z, xc = zx.chunk(2, dim=-1)
+    if mesh is None:
+        zx = torch.einsum("bsd,de->bse", x, params["w_in"])
+        z, xc = zx.chunk(2, dim=-1)
+        mine = None
+    else:
+        zx = collectives.gather_to(torch.einsum("bsd,de->bse", collectives.copy_to(
+            x, mesh, "model"), params["w_in"]), mesh, "model", -1)
+        mine = slice(axis_index(mesh, "model") * d_inner, (axis_index(mesh, "model") + 1)
+                     * d_inner)
+        z, xc = (t[..., mine] for t in zx.chunk(2, dim=-1))
     conv_tail = state["conv"] if state is not None else None
+    if mine is not None and conv_tail is not None:
+        conv_tail = conv_tail[..., mine]
     xc, new_tail = _causal_conv(xc, params["conv"], conv_tail)
+    if mine is not None and new_tail is not None:
+        new_tail = collectives.all_gather(new_tail, mesh, "model", dim=-1)
     xc = silu(xc)
 
     dt = F.softplus(at_least_fp32(xc) + at_least_fp32(params["w_dt"]))
-    bc = at_least_fp32(torch.einsum("bse,en->bsn", xc, params["w_bc"]))
+    # Summed over the channels of every rank, then read by each rank's own
+    # channels: its gradient is summed over model too.
+    bc = collectives.copy_to(collectives.psum(at_least_fp32(torch.einsum(
+        "bse,en->bsn", xc, params["w_bc"])), mesh, "model"), mesh, "model")
     b_in, c_out = bc.chunk(2, dim=-1)  # [B,S,N] each
     a = -torch.exp(at_least_fp32(params["a_log"]))  # [D,N], negative
 
@@ -120,6 +149,8 @@ def selective_ssm(
 
     h0 = state["h"] if state is not None else torch.zeros(
         (B, d_inner, n_state), dtype=dt.dtype, device=x.device)
+    if mine is not None and h0.shape[1] != d_inner:  # a whole state: this rank's channels
+        h0 = h0[:, mine]
     if S == 1:
         h = decay[:, 0] * h0 + drive[:, 0]
         hs = h[:, None]
@@ -140,7 +171,7 @@ def selective_ssm(
     y = torch.einsum("bsdn,bsn->bsd", hs, c_out)  # [B,S,D_inner] fp32
     y = y + at_least_fp32(params["d_skip"]) * at_least_fp32(xc)
     y = (y * silu(at_least_fp32(z))).to(x.dtype)
-    y = torch.einsum("bse,ed->bsd", y, params["w_out"])
+    y = collectives.psum(torch.einsum("bse,ed->bsd", y, params["w_out"]), mesh, "model")
     new_state = None
     if state is not None:
         new_state = {"h": h_last, "conv": new_tail}

@@ -1,12 +1,26 @@
 """Decoder-only transformer assembly for the dense / MoE / MLA / hybrid / VLM
 configs, on PyTorch.
 
-The counterpart of ``repro.models.transformer`` on one card. Parameters are
-declared stacked (``[L, ...]``, ``decoder_defs``, as in the JAX package) and
-held per layer: each stack is an ``nn.ModuleList`` that ``forward`` walks
-in a Python loop (no scan, no remat, no sharding constraints). Caches are
-dicts of tensors stacked per layer ``[L, B, ...]``; a layer reads and, in
-decode, writes its slice in place.
+The counterpart of ``repro.models.transformer``. Parameters are declared
+stacked (``[L, ...]``, ``decoder_defs``, as in the JAX package) and held per
+layer: each stack is an ``nn.ModuleList`` that ``forward`` walks in a
+Python loop (no scan, no remat). Caches are dicts of tensors stacked per
+layer ``[L, B, ...]``; a layer reads and, in decode, writes its slice in
+place.
+
+On a mesh (``ctx = ModelContext(mesh, rules)``) every tensor is this
+rank's block: the batch rows of its DP coordinates, and the heads, FFN
+columns, vocabulary rows and experts its specs give it. Where the JAX
+package leaves the partitioning to GSPMD, the port says where ranks meet,
+Megatron-style: a replicated activation enters a model-sharded region
+through ``collectives.copy_to`` and a partial result leaves it through
+``collectives.psum`` (attention over heads, the MLP over its FFN columns,
+MLA over heads, the vocabulary of the embedding and the logits); the MoE
+layer and the embedding lookup are the JAX package's own ``shard_map``
+regions; the hybrid's SSM branch splits its channels (``ssm.py``).
+``constrain`` stands at the JAX package's places; on the plain blocks the
+port holds it changes nothing. Off a mesh (``ctx`` None) the code is the
+one-card path, operation for operation.
 
 Three execution modes:
   * train   - no caches; chunked causal attention bounds memory.
@@ -18,12 +32,15 @@ Three execution modes:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed import collectives
+from ..distributed.sharding import ShardingRules, axis_index, axis_size, constrain, mesh_shape
 from .layers import (
     ParamDef,
     apply_rope,
@@ -43,6 +60,42 @@ from .ssm import init_ssm_state, selective_ssm, ssm_defs
 
 #: The stacks a decoder declares, in the order ``forward`` runs them.
 STACKS = (("layers", False), ("dense_layers", False), ("moe_layers", True))
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelContext:
+    mesh: Any
+    rules: ShardingRules
+    #: The mesh axis the decode caches' sequence dim is split over (the
+    #: serve step's flash-decode layout, ``serve_step.cache_shardings``).
+    cache_seq_axis: Optional[str] = None
+
+    @property
+    def tp(self) -> int:
+        return axis_size(self.mesh, "model")
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The DP axes the batch rows are split over."""
+        return tuple(a for a in ("pod", "data") if a in mesh_shape(self.mesh))
+
+
+def _mesh(ctx: Optional[ModelContext]):
+    return ctx.mesh if ctx is not None else None
+
+
+def _rules(ctx: Optional[ModelContext]):
+    return ctx.rules if ctx is not None else None
+
+
+def _tp(ctx: Optional[ModelContext]) -> int:
+    return ctx.tp if ctx is not None else 1
+
+
+def _with(p, **replaced) -> Dict[str, Any]:
+    """The entries of a parameter node as a dict, some replaced."""
+    keys = p._keys if hasattr(p, "_keys") else list(p)  # noqa: SLF001
+    return {k: replaced.get(k, p[k]) for k in keys}
 
 
 # ---------------------------------------------------------------------------
@@ -126,16 +179,24 @@ def _mla_attention(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_pos: Optional[int] = None,
     q_chunk: Optional[int] = None,
+    mesh=None,
+    split=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Multi-head Latent Attention. Decode runs the absorbed form against
     the compressed cache [B, S, kv_lora] + [B, S, rope_d], written in
-    place."""
+    place. With ``mesh``, the heads are this rank's block of ``model``:
+    the replicated latents enter through ``copy_to`` and the output
+    leaves through ``psum``. With ``split`` (a mesh), the cache holds this
+    rank's block of positions along ``model`` and decode is flash-decode
+    (``_split_softmax_values``)."""
     B, S, _ = x.shape
+    enter = lambda t: collectives.copy_to(t, mesh, "model")  # noqa: E731
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     scale = float((nope + rope_d) ** -0.5)
 
     cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dq"]), p["q_norm"])
-    q = torch.einsum("bsr,rhk->bshk", cq, p["w_uq"])
+    q = torch.einsum("bsr,rhk->bshk", enter(cq), p["w_uq"])
+    n_heads = q.shape[2]
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -144,36 +205,159 @@ def _mla_attention(
     k_rope = apply_rope(ckv_full[:, :, None, cfg.kv_lora_rank :], positions, cfg.rope_theta)[:, :, 0]
 
     if mode != "decode":
-        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
-        v = torch.einsum("bsr,rhv->bshv", c_kv, p["w_uv"])
-        k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, cfg.n_heads, rope_d)], dim=-1)
+        k_nope = torch.einsum("bsr,rhk->bshk", enter(c_kv), p["w_uk"])
+        v = torch.einsum("bsr,rhv->bshv", enter(c_kv), p["w_uv"])
+        k = torch.cat([k_nope, enter(k_rope)[:, :, None].expand(B, S, n_heads, rope_d)], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
         out = causal_attention(qq, k, v, q_chunk=q_chunk, softmax_scale=scale)
-        y = torch.einsum("bshv,hvd->bsd", out, p["wo"])
+        y = collectives.psum(torch.einsum("bshv,hvd->bsd", out, p["wo"]), mesh, "model")
         cache_out = {"c_kv": c_kv, "k_rope": k_rope} if mode == "prefill" else None
         return y, cache_out
 
     assert S == 1 and cache is not None and cache_pos is not None
     ckv_cache, kr_cache = cache["c_kv"], cache["k_rope"]
-    ckv_cache[:, cache_pos] = c_kv[:, 0]
-    kr_cache[:, cache_pos] = k_rope[:, 0]
+    first = axis_index(split, "model") * ckv_cache.shape[1]  # this rank's positions
+    if first <= cache_pos < first + ckv_cache.shape[1]:
+        ckv_cache[:, cache_pos - first] = c_kv[:, 0]
+        kr_cache[:, cache_pos - first] = k_rope[:, 0]
     q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])  # absorb W_uk
+    if split is not None and mesh is not None:  # every head against this rank's positions
+        q_c = collectives.all_gather(q_c, split, "model", dim=2)
+        q_rope = collectives.all_gather(q_rope, split, "model", dim=2)
     scores = (
         torch.einsum("bshr,btr->bhst", at_least_fp32(q_c), at_least_fp32(ckv_cache))
         + torch.einsum("bshk,btk->bhst", at_least_fp32(q_rope), at_least_fp32(kr_cache))
     ) * scale
-    t_pos = torch.arange(ckv_cache.shape[1], device=x.device)
+    t_pos = first + torch.arange(ckv_cache.shape[1], device=x.device)
     scores = torch.where((t_pos <= cache_pos)[None, None, None, :], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    ctx_c = torch.einsum("bhst,btr->bshr", probs.to(ckv_cache.dtype), ckv_cache)
+    values = lambda probs: torch.einsum(  # noqa: E731
+        "bhst,btr->bshr", probs.to(ckv_cache.dtype), ckv_cache)
+    if split is None:
+        ctx_c = values(torch.softmax(scores, dim=-1))
+    else:
+        ctx_c = _split_softmax_values(scores, values, split)
+        if mesh is not None:
+            ctx_c = ctx_c[:, :, axis_index(mesh, "model") * n_heads:][:, :, :n_heads]
     out = torch.einsum("bshr,rhv->bshv", ctx_c, p["w_uv"])
-    y = torch.einsum("bshv,hvd->bsd", out, p["wo"])
+    y = collectives.psum(torch.einsum("bshv,hvd->bsd", out, p["wo"]), mesh, "model")
     return y, cache
 
 
 # ---------------------------------------------------------------------------
 # blocks & stacks
 # ---------------------------------------------------------------------------
+
+def _attention(cfg: ModelConfig, ctx, p, h, positions, **kw):
+    """The block's attention; on a mesh over this rank's heads (when the
+    heads shard over ``model``), summed over ``model``."""
+    if cfg.use_mla:
+        mesh = _mesh(ctx)
+        sharded = _tp(ctx) > 1 and p["w_uq"].shape[1] < cfg.n_heads
+        return _mla_attention(cfg, p, h, positions, mesh=mesh if sharded else None,
+                              split=mesh if _split_cache(ctx, kw) else None, **kw)
+    return tp_gqa_attention(ctx, p, h, positions, n_heads=cfg.n_heads,
+                            n_kv_heads=cfg.n_kv_heads, rope_theta=cfg.rope_theta,
+                            sliding_window=cfg.sliding_window or None, **kw)
+
+
+def _split_cache(ctx, kw) -> bool:
+    """Decode against caches whose positions split over ``model``."""
+    return kw.get("mode") == "decode" and ctx is not None and bool(ctx.cache_seq_axis) \
+        and _tp(ctx) > 1
+
+
+def tp_gqa_attention(ctx: Optional[ModelContext], p, h, positions, *, n_heads: int,
+                     n_kv_heads: int, **kw):
+    """``layers.gqa_attention_block`` (its keywords in ``kw``) on this rank's
+    heads when they shard over ``model``: ``h`` enters through ``copy_to``,
+    the output leaves through ``psum``. When the KV heads stay whole (their
+    count does not divide ``model``) each query head reads its own and the
+    KV weights' gradient is summed over ``model``; decode against caches
+    split over ``model`` is ``_gqa_split_decode``."""
+    mesh = _mesh(ctx)
+    if _split_cache(ctx, kw):
+        return _gqa_split_decode(p, h, positions, kw["cache"], kw["cache_pos"], mesh,
+                                 n_heads=n_heads, rope_theta=kw.get("rope_theta", 10000.0),
+                                 use_rope=kw.get("use_rope", True))
+    if _tp(ctx) == 1 or p["wq"].shape[1] == n_heads:
+        return gqa_attention_block(p, h, positions, **kw)
+    kv_index = None
+    if p["wk"].shape[1] == n_kv_heads and n_kv_heads < n_heads:
+        n_local = p["wq"].shape[1]
+        first = axis_index(mesh, "model") * n_local
+        kv_index = (first + torch.arange(n_local, device=h.device)) // (n_heads // n_kv_heads)
+        p = _with(p, **{k: collectives.copy_to(p[k], mesh, "model")
+                        for k in ("wk", "wv", "bk", "bv") if k in p})
+    y, cache = gqa_attention_block(p, collectives.copy_to(h, mesh, "model"), positions,
+                                   kv_index=kv_index, **kw)
+    return collectives.psum(y, mesh, "model"), cache
+
+
+def _split_softmax_values(scores: torch.Tensor, values, mesh) -> torch.Tensor:
+    """``values(softmax(scores))`` where the last dim of ``scores`` (keys)
+    is split over ``model``: the max and the sum of the exponentials are
+    taken over every rank's keys, and the partial products with this
+    rank's values are summed over ``model`` (flash-decode)."""
+    from torch.distributed import ReduceOp
+
+    m = collectives.all_reduce_(scores.amax(-1, keepdim=True), mesh, "model", op=ReduceOp.MAX)
+    e = torch.exp(scores - m)
+    total = collectives.all_reduce_(e.sum(-1, keepdim=True), mesh, "model")
+    return collectives.all_reduce_(values(e / total), mesh, "model")
+
+
+def _gqa_split_decode(p, h, positions, cache, cache_pos: int, mesh, *, n_heads: int,
+                      rope_theta: float, use_rope: bool = True):
+    """GQA decode against a linear cache whose positions are split over
+    ``model`` (its KV heads whole: their count does not divide ``model``).
+    The new token's K/V land on the rank holding ``cache_pos``; every query
+    head (gathered when they shard over ``model``) attends to each rank's
+    positions, combined by ``_split_softmax_values``; the output projection
+    runs on this rank's heads and is summed over ``model``."""
+    if "pos" in cache:
+        raise NotImplementedError("a ring cache split over model is not ported")
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    k_cache, v_cache = cache["k"], cache["v"]
+    first = axis_index(mesh, "model") * k_cache.shape[1]
+    if first <= cache_pos < first + k_cache.shape[1]:
+        k_cache[:, cache_pos - first] = k[:, 0]
+        v_cache[:, cache_pos - first] = v[:, 0]
+    n_local = q.shape[2]
+    heads_split = n_local < n_heads
+    if heads_split:
+        q = collectives.all_gather(q, mesh, "model", dim=2)
+    b, _, n_heads, dh = q.shape
+    kv_heads = k_cache.shape[2]
+    scores = torch.einsum("bqkgd,bskd->bkgqs",
+                          at_least_fp32(q.reshape(b, 1, kv_heads, n_heads // kv_heads, dh)),
+                          at_least_fp32(k_cache)) * (1.0 / math.sqrt(dh))
+    kv_pos = first + torch.arange(k_cache.shape[1], device=h.device)
+    scores = torch.where((kv_pos <= cache_pos)[None, None, None, None, :], scores, -1e30)
+    out = _split_softmax_values(
+        scores, lambda probs: torch.einsum("bkgqs,bskd->bqkgd", probs.to(v_cache.dtype), v_cache),
+        mesh).reshape(b, 1, n_heads, dh)
+    if heads_split:
+        out = out[:, :, axis_index(mesh, "model") * n_local:][:, :, :n_local]
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return (collectives.psum(y, mesh, "model") if heads_split else y), cache
+
+
+def _mlp(ctx, p, h, activation: str, d_ff: int):
+    """A gated MLP; on a mesh over this rank's FFN columns, summed over
+    ``model``."""
+    if _tp(ctx) == 1 or p["w_gate"].shape[-1] == d_ff:
+        return gated_mlp(p, h, activation)
+    mesh = _mesh(ctx)
+    y = gated_mlp(p, collectives.copy_to(h, mesh, "model"), activation)
+    return collectives.psum(y, mesh, "model")
+
 
 def _block(
     cfg: ModelConfig,
@@ -186,23 +370,16 @@ def _block(
     cache: Optional[Dict[str, Any]] = None,
     cache_pos: Optional[int] = None,
     q_chunk: Optional[int] = None,
+    ctx: Optional[ModelContext] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
+    rules = _rules(ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm1"])
 
     attn_cache = cache.get("attn") if cache else None
-    if cfg.use_mla:
-        attn_out, attn_cache_out = _mla_attention(
-            cfg, p["attn"], h, positions, mode=mode,
-            cache=attn_cache, cache_pos=cache_pos, q_chunk=q_chunk,
-        )
-    else:
-        attn_out, attn_cache_out = gqa_attention_block(
-            p["attn"], h, positions,
-            rope_theta=cfg.rope_theta, mode=mode,
-            cache=attn_cache, cache_pos=cache_pos,
-            sliding_window=cfg.sliding_window or None, q_chunk=q_chunk,
-        )
+    attn_out, attn_cache_out = _attention(cfg, ctx, p["attn"], h, positions, mode=mode,
+                                          cache=attn_cache, cache_pos=cache_pos,
+                                          q_chunk=q_chunk)
     cache_out: Dict[str, Any] = {}
     if attn_cache_out is not None:
         cache_out["attn"] = attn_cache_out
@@ -215,7 +392,9 @@ def _block(
                                        device=x.device, dtype=cfg.dtype)
         else:
             ssm_state = cache.get("ssm") if cache else None
-        ssm_out, ssm_state_out = selective_ssm(p["ssm"], h, state=ssm_state)
+        ssm_sharded = _tp(ctx) > 1 and p["ssm"]["conv"].shape[-1] < cfg.ssm_expand * cfg.d_model
+        ssm_out, ssm_state_out = selective_ssm(p["ssm"], h, state=ssm_state,
+                                               mesh=_mesh(ctx) if ssm_sharded else None)
         if ssm_state_out is not None:
             if mode == "decode":  # into the stacked cache, in place
                 for k, t in ssm_state_out.items():
@@ -226,18 +405,22 @@ def _block(
         x = x + fused
     else:
         x = x + attn_out
+    x = constrain(x, rules, "batch", None, None)
 
     h2 = rms_norm(x, p["norm2"])
     if moe:
         mlp_out, aux = moe_layer(
             p["moe"], h2, top_k=cfg.top_k,
             capacity_factor=cfg.capacity_factor, activation=cfg.activation,
+            mesh=_mesh(ctx), dp_axes=("pod", "data"),
         )
         if "shared" in p["moe"]:
-            mlp_out = mlp_out + gated_mlp(p["moe"]["shared"], h2, cfg.activation)
+            mlp_out = mlp_out + _mlp(ctx, p["moe"]["shared"], h2, cfg.activation,
+                                     cfg.n_shared_experts * cfg.d_ff_expert)
     else:
-        mlp_out = gated_mlp(p["mlp"], h2, cfg.activation)
+        mlp_out = _mlp(ctx, p["mlp"], h2, cfg.activation, cfg.d_ff)
     x = x + mlp_out
+    x = constrain(x, rules, "batch", None, None)
     return x, (cache_out or None), aux
 
 
@@ -266,6 +449,7 @@ def _run_stack(
     caches: Optional[Dict[str, Any]] = None,
     cache_pos: Optional[int] = None,
     q_chunk: Optional[int] = None,
+    ctx: Optional[ModelContext] = None,
 ):
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = []
@@ -273,7 +457,7 @@ def _run_stack(
         x, cache_out, aux = _block(
             cfg, p, x, positions,
             moe=moe, mode=mode, cache=_layer_cache(caches, i), cache_pos=cache_pos,
-            q_chunk=q_chunk,
+            q_chunk=q_chunk, ctx=ctx,
         )
         aux_total = aux_total + aux
         per_layer.append(cache_out)
@@ -286,21 +470,60 @@ def _run_stack(
 # public API
 # ---------------------------------------------------------------------------
 
-def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
+def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
+                 ctx: Optional[ModelContext] = None) -> torch.Tensor:
+    x = sharded_embed_lookup(ctx, params["embed"], tokens, cfg.vocab_size)
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(x.dtype)
     return x
 
 
-def unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+def sharded_embed_lookup(ctx: Optional[ModelContext], table: torch.Tensor,
+                         tokens: torch.Tensor, vocab: Optional[int] = None) -> torch.Tensor:
+    """Vocab-sharded embedding lookup without gathering the table.
+
+    Each rank looks its ids up in its block of vocabulary rows (ids outside
+    it masked to zero) and the [B, S, D] partials are summed over
+    ``model``: wire B*S*D instead of V*D, and the backward a local
+    scatter-add. A plain lookup off a mesh, at ``model`` 1, or when the
+    vocabulary (``vocab``, the table's global rows) does not divide.
+    """
+    tp = _tp(ctx)
+    if tp <= 1 or (vocab or table.shape[0]) % tp != 0:
+        return table[tokens]
+    mesh = ctx.mesh
+
+    def inner(tab_l, tok_l):
+        v_l = tab_l.shape[0]
+        rel = tok_l - axis_index(mesh, "model") * v_l
+        ok = (rel >= 0) & (rel < v_l)
+        x = tab_l[torch.clamp(rel, 0, v_l - 1)]
+        x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+        return collectives.psum(x, mesh, "model")
+
+    from ..distributed.sharding import P, shard_map_compat
+
+    rows = ctx.batch_axes
+    tok = P(rows if len(rows) > 1 else (rows[0] if rows else None), *[None] * (tokens.dim() - 1))
+    return shard_map_compat(inner, mesh=mesh, in_specs=(P("model", None), tok),
+                            out_specs=P(*tok, None), check_vma=False)(table, tokens)
+
+
+def unembed(cfg: ModelConfig, params, x: torch.Tensor,
+            ctx: Optional[ModelContext] = None) -> torch.Tensor:
+    """Logits; on a mesh, this rank's vocabulary columns when the
+    vocabulary shards over ``model``."""
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    v_local = table.shape[0] if cfg.tie_embeddings else table.shape[1]
+    if _tp(ctx) > 1 and v_local < cfg.vocab_size:
+        x = collectives.copy_to(x, ctx.mesh, "model")
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+        logits = torch.einsum("bsd,vd->bsv", x, table)
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, params["unembed"])
+        logits = torch.einsum("bsd,dv->bsv", x, table)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits
+    return constrain(logits, _rules(ctx), "batch", None, "vocab")
 
 
 def forward(
@@ -312,10 +535,12 @@ def forward(
     prefix_embeds: Optional[torch.Tensor] = None,
     caches: Optional[Dict[str, Any]] = None,
     cache_pos: Optional[int] = None,
+    ctx: Optional[ModelContext] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (logits, aux_loss, caches_out); decode writes ``caches`` in
-    place at ``cache_pos`` and returns them."""
-    x = embed_tokens(cfg, params, tokens)
+    place at ``cache_pos`` and returns them. With ``ctx``, every tensor is
+    this rank's block (the logits its vocabulary columns)."""
+    x = embed_tokens(cfg, params, tokens, ctx)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
@@ -323,6 +548,7 @@ def forward(
         positions = torch.full((B, 1), cache_pos, dtype=torch.int32, device=x.device)
     else:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    x = constrain(x, _rules(ctx), "batch", None, None)
     q_chunk = cfg.attn_q_chunk if (mode != "decode" and S > cfg.attn_q_chunk) else None
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -334,14 +560,14 @@ def forward(
             cfg, params[stack_name], x, positions,
             moe=moe, mode=mode,
             caches=caches.get(stack_name) if caches else None,
-            cache_pos=cache_pos, q_chunk=q_chunk,
+            cache_pos=cache_pos, q_chunk=q_chunk, ctx=ctx,
         )
         aux_total = aux_total + aux
         if nc is not None:
             caches_out[stack_name] = nc
 
     x = rms_norm(x, params["final_norm"])
-    logits = unembed(cfg, params, x)
+    logits = unembed(cfg, params, x, ctx)
     return logits, aux_total, (caches_out or None)
 
 

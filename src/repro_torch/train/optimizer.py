@@ -12,8 +12,9 @@ per-layer tensors of a stacked leaf of the JAX package as a list. Weight
 decay follows the declared, stacked shape: a leaf decays when its stacked
 ndim is at least 2, so a per-layer norm ``[D]`` of a stack ``[L, D]``
 decays, as the JAX package's does, and the top-level ``final_norm`` does
-not. ZeRO-1 comes from shardings in the JAX package and waits for the
-distributed slice.
+not. On a mesh (``train_step.ShardedTrainStep``) the same update runs on
+each rank's ZeRO-1 blocks, with the global norm of the whole gradient
+passed in (``grad_norm``, from ``sharded_global_norm``).
 """
 
 from __future__ import annotations
@@ -69,20 +70,39 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.stack(sums).sum())
 
 
+def sharded_global_norm(blocks, mesh) -> torch.Tensor:
+    """The global norm of a gradient held in blocks on a mesh: ``blocks``
+    is ``(leaf, mesh axes it is sharded over)`` per leaf, in tree order, a
+    leaf a tensor or its per-layer tensors. Each layer's sum of squares is
+    summed over the leaf's axes (the ranks holding its other blocks;
+    replicas are counted once), then all of them as ``global_norm`` sums
+    them, so at world size 1 the norm equals ``global_norm`` bit for bit."""
+    from ..distributed.collectives import all_reduce_
+
+    sums = []
+    for leaf, axes in blocks:
+        part = torch.stack([t.float().square().sum() for t in members(leaf)])
+        sums += all_reduce_(part, mesh, *axes).unbind(0)
+    return torch.sqrt(torch.stack(sums).sum())
+
+
 @torch.no_grad()
 def adamw_update(
     cfg: AdamWConfig,
     params: Any,
     grads: Any,
     state: Dict[str, Any],
+    *,
+    grad_norm: torch.Tensor = None,
 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step over the tree, in place. Returns (params, state,
     {"lr", "grad_norm"}) with ``params`` and the moments the same tensors,
-    updated, and ``state["step"]`` a new tensor."""
+    updated, and ``state["step"]`` a new tensor. ``grad_norm``: the norm to
+    clip by, when ``grads`` are blocks of a larger gradient."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
 
     b1, b2 = cfg.b1, cfg.b2

@@ -504,3 +504,107 @@ def test_train_step_on_the_card_matches_the_host(cuda, arch):
     np.testing.assert_allclose(results[0][0], results[1][0], rtol=1e-6)
     for (name, a), b in zip(card.state_dict().items(), host.state_dict().values()):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the mesh on the card: NCCL at world size 1
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-moe-16b"])
+def test_nccl_mesh_step_matches_the_one_card_step(cuda, arch):
+    """The train step on make_host_mesh() (NCCL, (data, model) = (1, 1))
+    against the one-card step from the same weights and batches: at world
+    size 1 every collective is skipped and the arithmetic per element is the
+    same, so losses, gradient norms and parameters are equal bit for bit;
+    moments on the card, the group NCCL."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import all_configs, smoke_config
+    from repro_torch.distributed import default_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_tensors
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    cfg = smoke_config(all_configs()[arch])
+    mesh = make_host_mesh(device="cuda")
+    assert dist.get_backend() == "nccl"
+    rng = np.random.default_rng(4)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, 33), dtype=np.int32)}
+               for _ in range(3)]
+    ocfg = AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    runs = []
+    for on_mesh in (False, True):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(6)
+        model = build_model(cfg, device="cuda")
+        params, opt = init_train_state(model, gen, compress_grads=True)
+        step = make_train_step(model, mesh, default_rules(mesh), ocfg, compress_grads=True)[0] \
+            if on_mesh else make_train_step(model, ocfg, compress_grads=True)
+        metrics = []
+        for batch in batches:
+            params, opt, m = step(params, opt, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append((metrics, [t.clone() for t in tree_tensors(params)],
+                     {t.device.type for t in tree_tensors(opt["m"])}))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert runs[1][2] == {"cuda"}
+
+
+def test_compressed_psum_on_nccl(cuda):
+    """compressed_psum over the NCCL group of one rank: the int8 round trip
+    of compress/decompress, bit for bit."""
+    from repro_torch.distributed import compress, compressed_psum, decompress
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(device="cuda")
+    x = torch.randn((257, 129), generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda") * 3
+    q, scale = compress(x)
+    got = compressed_psum(x, "data", mesh=mesh)
+    assert got.device.type == "cuda" and got.dtype == x.dtype
+    assert torch.equal(got, decompress(q, scale))
+    bf = compressed_psum(x.to(torch.bfloat16), "data", mesh=mesh)
+    assert bf.dtype == torch.bfloat16
+
+
+def test_nccl_mesh_serve_matches_one_card(cuda):
+    """make_serve_steps(model, mesh, rules, ...) at world size 1 against the
+    one-card serve steps: the same greedy tokens and logits, caches on the
+    card in the shape caches_abstract gives."""
+    from repro_torch.configs import all_configs, smoke_config
+    from repro_torch.distributed import default_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serve import make_serve_steps, prefill_to_decode_caches
+
+    cfg = smoke_config(all_configs()["granite-3-2b"])
+    mesh = make_host_mesh(device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (4, 16), generator=torch.Generator()
+                            .manual_seed(2)).cuda()
+    runs = []
+    for on_mesh in (False, True):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(8)
+        model = build_model(cfg, device="cuda").init(gen)
+        if on_mesh:
+            pre, dec, abstract, _ = make_serve_steps(model, mesh, default_rules(mesh), batch=4,
+                                                     max_len=24)
+            params = model.param_tree()
+            prefill, decode = (lambda b: pre(params, b)), (lambda *a: dec(params, *a))
+        else:
+            prefill, decode, abstract = make_serve_steps(model, batch=4, max_len=24)
+        logits, pc = prefill({"tokens": prompts})
+        caches = prefill_to_decode_caches(cfg, model, pc, 4, 24, 16)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        out = [logits]
+        for t in range(8):
+            tok, lg, caches = decode(tok, caches, 16 + t)
+            out.append(lg)
+        assert all(c.device.type == "cuda" for c in tree_leaves(caches))
+        assert [tuple(a.shape) for a in tree_leaves(abstract)] == \
+            [tuple(c.shape) for c in tree_leaves(caches)]
+        runs.append(torch.cat([o[:, -1:] for o in out], 1))
+    assert torch.equal(runs[0], runs[1])

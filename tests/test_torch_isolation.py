@@ -85,6 +85,13 @@ def test_host_copy_matches_reference(rel):
     assert (PORT / rel).read_bytes() == (REF / rel).read_bytes()
 
 
+def test_the_mesh_modules_are_scanned():
+    """The mesh slice's modules are among the files both checks scan."""
+    for rel in ("launch/mesh.py", "distributed/sharding.py", "distributed/pipeline.py",
+                "distributed/collectives.py", "distributed/compression.py"):
+        assert str(Path("src") / "repro_torch" / rel) in PORT_FILES, rel
+
+
 def test_kernel_sources_are_in_the_package():
     from repro_torch.kernels import _build
 
