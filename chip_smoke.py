@@ -131,6 +131,26 @@ Phases, each fatal on failure:
      compressed_psum not the round trip, a parameter, gradient, moment or
      cache off the card, a kernel that did not launch, or the engine erred
      or fell back;
+ 13. remat and the roofline (repro_torch.launch.dryrun, .roofline): (a)
+     granite-3-2b at full width and 2 layers, batch 2 x seq 4096, the
+     trainer's forward and backward under each policy once untimed, then
+     under none, dots, full, dots, none on the same weights and batch; at 40
+     layers and phase 11's 8 x 128 tokens, none, dots, dots, none (the
+     host's share: the step is host-bound there); (b) the
+     dry-run's estimates of the one-card step (mesh (1, 1) over a fake
+     group, 40 layers, seq 4096) at batch 1-4, each in a worker process on
+     the host, and granite-3-2b at its 40 layers through
+     repro_torch.launch.train.run on phase 11's shards at the largest
+     batch estimated under 72 GB, 2 warm, 4 timed and 1 profiled step,
+     beside the estimate's memory, FLOPs and roofline terms; (c) in a
+     worker process, rank 0 of granite-3-2b train_4k on (16, 16) over a
+     fake group of 256, cut to 2 layers, its step on real tensors on the
+     card (the collectives move nothing) beside the dry-run's estimate of
+     that cell. Fatal: a loss or gradient norm (1e-4) that differs from
+     none's, dots' memory not below none's, no batch under the budget, a
+     loss not finite, a kernel that did not launch, a tensor off the
+     card, the engine erred or fell back, or the cell not on a fake group
+     of 256 on the card;
   then one JSON line of kernel results and, last, the {"ok": true, ...}
   line.
 
@@ -2480,11 +2500,316 @@ def log_pipeline(pipeline: dict, card: str) -> None:
                          json.dumps(pipeline["launches"])))
 
 
+# ---------------------------------------------------------------------------
+# phase 13: remat and the roofline
+# ---------------------------------------------------------------------------
+
+REMAT_ORDER = ("none", "dots", "full", "dots", "none")  # in turns, one step each
+REMAT_LAYERS = 2
+REMAT_BATCH = 2
+# Phase 11's shape (40 layers, 8 x 128 tokens), where the step is host-bound:
+# what remat's dispatch costs the host.
+HOST_BATCH, HOST_SEQ = 8, 128
+HOST_ORDER = ("none", "dots", "dots", "none")
+ROOF_SEQ = 4096  # SHAPES["train_4k"].seq_len
+ROOF_WARM, ROOF_TIMED, ROOF_PROFILED = 2, 4, 1
+ROOF_BUDGET = 72e9  # the dry-run's estimate of the one-card step must stay under this
+ROOF_BATCHES = (1, 2, 3, 4)  # estimated in parallel; the largest under the budget trains
+CELL_LAYERS = 2  # depth of the production cell run on the card (its CE alone is ~65 GB)
+GNORM_RTOL = 1e-4  # the embedding's backward adds with atomics on the card
+
+
+def _ask(argv):
+    """Start this script as a worker (``--worker``) in a process of its own."""
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--worker",
+                             json.dumps(argv)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+
+
+def _answer(proc, timeout: float = 600.0) -> dict:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        raise AssertionError("a phase 13 worker ran past %d s: %s" % (timeout, err[-3000:]))
+    if proc.returncode != 0:
+        raise AssertionError("a phase 13 worker failed (exit %d): %s"
+                             % (proc.returncode, err[-4000:]))
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def worker(spec: dict) -> dict:
+    """What a phase 13 worker computes, in a process whose fake group is
+    its own: ``estimate`` (the dry-run's count of one step on fake
+    tensors, on the host), or ``cell`` (the production cell's rank 0 on
+    the card: first its estimate, then the step on real tensors, once to
+    warm up and once measured)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.distributed import default_rules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import PRODUCTION_SHAPE
+
+    cfg = dataclasses.replace(get_config(spec["arch"]), n_layers=spec["layers"])
+    if spec["kind"] == "estimate":
+        shape = ShapeConfig("one_card", "train", spec["seq"], spec["batch"])
+        mesh = dryrun.fake_mesh((1, 1), ("data", "model"), "cpu")
+        m = dryrun.run_step(cfg, shape, mesh, device="cpu")
+        return dryrun.cell_result(cfg, shape, m, 1)
+    shape = SHAPES[spec["shape"]]
+    mesh = dryrun.production_mesh(False, "cuda")
+    estimate = dryrun.cell_result(cfg, shape, dryrun.run_step(cfg, shape, mesh, device="cuda"),
+                                  256)
+    import torch.distributed as dist
+
+    out = {"estimate": estimate, "backend": dist.get_backend(),
+           "world_size": dist.get_world_size(), "mesh": dict(zip(*PRODUCTION_SHAPE[False][::-1]))}
+    args, rows, run = dryrun.prepare_step(cfg, shape, mesh, default_rules(mesh), "cuda")
+    out["on_card"] = all(t.device.type == "cuda" for t in dryrun._tensors((args, rows)))
+    run()  # warm: cuBLAS handles, workspaces
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+    out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    out["event_ms"] = start.elapsed_time(end)
+    out["device_busy_ms"] = sum(e.self_device_time_total for e in prof.key_averages()
+                                if e.key != "Command Buffer Full") / 1e3
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def remat_ab(seed: int, card: str, layers: int, batch: int, seq: int, order) -> dict:
+    """granite-3-2b at full width and ``layers`` layers, batch x seq
+    tokens: one forward and backward of the trainer's loss per policy
+    untimed, then one per policy in ``order``, on the same weights and
+    batch. Fatal: a
+    loss or gradient norm that differs from none's, or dots' memory not
+    below none's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_tensors
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=layers)
+    model = build_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 130)
+    model.init(gen)
+    step = make_train_step(model, AdamWConfig(total_steps=1000))
+    params = model.param_tree()
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    # Untimed first: each policy once (cuBLAS, the allocator, the checkpoint
+    # machinery's first use).
+    warm_order = tuple(dict.fromkeys(order))
+    runs = []
+    for policy in warm_order + tuple(order):
+        model.cfg = dataclasses.replace(cfg, remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _, grads = step.compute_grads(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        gnorm = torch.sqrt(sum(g.float().square().sum() for g in tree_tensors(grads)))
+        runs.append({"policy": policy, "ms": ms, "loss": float(loss), "grad_norm": float(gnorm),
+                     "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        del grads
+    del model, params, step
+    torch.cuda.empty_cache()
+    warm, runs = runs[:len(warm_order)], runs[len(warm_order):]
+    ref = next(r for r in runs if r["policy"] == "none")
+    by = {p: [r for r in runs if r["policy"] == p] for p in set(order)}
+    out = {"card": card, "layers": layers, "batch": batch, "seq": seq, "order": list(order),
+           "warm_up": warm, "runs": runs,
+           "ms_median": {p: float(np.median([r["ms"] for r in rs])) for p, rs in by.items()},
+           "memory": {p: max(r["max_memory_allocated"] for r in rs) for p, rs in by.items()}}
+    problems = []
+    for r in warm + runs:
+        if r["loss"] != ref["loss"] or not np.isfinite(r["loss"]):
+            problems.append("%s: loss %r, none's %r" % (r["policy"], r["loss"], ref["loss"]))
+        if abs(r["grad_norm"] - ref["grad_norm"]) > GNORM_RTOL * abs(ref["grad_norm"]):
+            problems.append("%s: grad norm %r, none's %r" % (r["policy"], r["grad_norm"],
+                                                             ref["grad_norm"]))
+    if not out["memory"]["dots"] < out["memory"]["none"]:
+        problems.append("dots' memory %d not below none's %d" % (out["memory"]["dots"],
+                                                                 out["memory"]["none"]))
+    if problems:
+        raise AssertionError("remat A/B: %s; %s" % ("; ".join(problems), json.dumps(out)))
+    return out
+
+
+def roofline_path(seed: int, card: str) -> dict:
+    """Phase 13: (a) remat A/B, at seq ROOF_SEQ and at phase 11's shape;
+    (b) granite-3-2b at its 40 layers and
+    sequence ROOF_SEQ through repro_torch.launch.train.run on phase 11's
+    shards with the config's remat, at the largest batch whose dry-run
+    estimate (mesh (1, 1)) stays under ROOF_BUDGET, against that estimate;
+    (c) rank 0 of granite-3-2b train_4k on (16, 16) over a fake group, on
+    the card, against the dry-run's estimate of that cell."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import crc32 as kc
+    from repro_torch.kernels import marker_replace as mr
+    from repro_torch.kernels.engine import shared_engine
+    from repro_torch.launch import roofline
+    from repro_torch.launch import train as launch
+
+    t_phase = time.perf_counter()
+    layers = get_config(TRAIN_ARCH).n_layers
+    estimates = {b: _ask({"kind": "estimate", "arch": TRAIN_ARCH, "layers": layers,
+                          "seq": ROOF_SEQ, "batch": b}) for b in ROOF_BATCHES}
+    out = {"card": card,
+           "remat": remat_ab(seed, card, REMAT_LAYERS, REMAT_BATCH, ROOF_SEQ, REMAT_ORDER),
+           "remat_host": remat_ab(seed, card, layers, HOST_BATCH, HOST_SEQ, HOST_ORDER)}
+    estimates = {b: _answer(p) for b, p in estimates.items()}
+    fitting = [b for b, e in estimates.items() if e["memory"]["peak_bytes"] < ROOF_BUDGET]
+    if not fitting:
+        raise AssertionError("no batch of %s fits %g bytes by the dry-run: %s" % (
+            ROOF_BATCHES, ROOF_BUDGET, {b: e["memory"] for b, e in estimates.items()}))
+    batch = max(fitting)
+    est = estimates[batch]
+    out["estimates"] = {b: {"peak_bytes": e["memory"]["peak_bytes"], "flops": e["cost"]["flops"],
+                            "roofline": e["roofline"]} for b, e in estimates.items()}
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="roofline-", dir=ROOT / "build"))
+    engine = shared_engine("cuda")
+    before = engine.stats()
+    relay = lambda line: log("roofline path [%s]: %s" % (card, line))  # noqa: E731
+    try:
+        corpus = work / "corpus"
+        corpus.mkdir()
+        for i in range(TRAIN_SHARDS):  # phase 11's shards, made again from the seed
+            (corpus / ("shard_%03d.gz" % i)).write_bytes(
+                gzip.compress(base64_corpus(seed + 70 + i, TRAIN_SHARD_MIB << 20), 6, mtime=0))
+        args = _driver_args(work, TRAIN_ARCH, ROOF_WARM + ROOF_TIMED + ROOF_PROFILED, seed + 70,
+                            "--seq", str(ROOF_SEQ), "--batch", str(batch),
+                            "--profile-steps", str(ROOF_PROFILED))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mr.reset_launches()
+        kc.reset_launches()
+        run = launch.run(args, log=relay)
+        launches = {"marker_replace": mr.launches, "crc32": kc.launches}
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    after = engine.stats()
+    timed = [s * 1e3 for s in run["step_s"][ROOF_WARM:ROOF_WARM + ROOF_TIMED]]
+    p50 = float(np.percentile(timed, 50))
+    terms = est["roofline"]
+    out["train"] = {
+        "arch": TRAIN_ARCH, "layers": layers, "params": run["params"], "batch": batch,
+        "seq": ROOF_SEQ, "remat_policy": get_config(TRAIN_ARCH).remat_policy,
+        "losses": run["losses"], "step_ms": {"p50": p50, "all": [s * 1e3 for s in run["step_s"]]},
+        "tokens_per_s": batch * ROOF_SEQ / (p50 / 1e3),
+        "max_memory_allocated": peak, "estimate_peak_bytes": est["memory"]["peak_bytes"],
+        "estimate_argument_bytes": est["memory"]["argument_size_in_bytes"],
+        "flops": est["cost"]["flops"], "achieved_tflops": est["cost"]["flops"] / (p50 / 1e3) / 1e12,
+        "peak_share": est["cost"]["flops"] / (p50 / 1e3) / roofline.PEAK_FLOPS,
+        "t_compute_ms": terms["t_compute"] * 1e3, "t_memory_ms": terms["t_memory"] * 1e3,
+        "t_collective_ms": terms["t_collective"] * 1e3, "dominant": terms["dominant"],
+        "launches": launches, "devices": run["devices"], "data_share": run["data_share"],
+        "profile": run["profile"],
+    }
+    torch.cuda.synchronize()
+    cell = _answer(_ask({"kind": "cell", "arch": TRAIN_ARCH, "layers": CELL_LAYERS,
+                         "shape": "train_4k"}), timeout=900)
+    ce = cell["estimate"]
+    cell.update(layers=CELL_LAYERS, estimate_peak_bytes=ce["memory"]["peak_bytes"],
+                t_compute_ms=ce["roofline"]["t_compute"] * 1e3,
+                t_memory_ms=ce["roofline"]["t_memory"] * 1e3,
+                t_collective_ms=ce["roofline"]["t_collective"] * 1e3,
+                flops=ce["cost"]["flops"], bytes=ce["cost"]["bytes accessed"])
+    del cell["estimate"]
+    out["cell"] = cell
+    out["launches"] = launches
+    out["engine"] = {"errors": after["errors"] - before["errors"], "fallbacks": after["fallbacks"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    problems = []
+    if not all(np.isfinite(run["losses"])):
+        problems.append("a loss is not finite: %s" % run["losses"])
+    if min(launches.values()) < 1:
+        problems.append("a kernel never launched on the roofline path: %s" % launches)
+    if any(v != ["cuda"] for v in run["devices"].values()):
+        problems.append("a parameter, gradient or moment is off the card: %s" % run["devices"])
+    if after["errors"] != before["errors"] or after["fallbacks"] != before["fallbacks"]:
+        problems.append("the corpus engine erred or fell back")
+    if cell["backend"] != "fake" or cell["world_size"] != 256 or not cell["on_card"]:
+        problems.append("the production cell did not run on the card over a fake group of 256: "
+                        "%s" % json.dumps(cell))
+    if problems:
+        raise AssertionError("roofline path: %s; %s" % ("; ".join(problems),
+                                                        json.dumps(out)[:4000]))
+    return out
+
+
+def log_roofline(r: dict, card: str) -> None:
+    t, c = r["train"], r["cell"]
+    for a in (r["remat"], r["remat_host"]):
+        log("roofline path [%s]: (a) remat A/B, %s at full width, %d layers, batch %d x seq %d, "
+            "in turns %s after one untimed each: max_memory_allocated %s; ms median %s; runs %s"
+            % (card, TRAIN_ARCH, a["layers"], a["batch"], a["seq"], "/".join(a["order"]),
+               json.dumps(a["memory"]), json.dumps(a["ms_median"]), json.dumps(a["runs"])))
+    log("roofline path [%s]: (b) dry-run estimates of the one-card step at %d layers, seq %d, by "
+        "batch: %s" % (card, t["layers"], t["seq"], json.dumps(
+            {b: e["peak_bytes"] for b, e in r["estimates"].items()})))
+    log("roofline path [%s]: (b) %s, %d layers, %s remat, batch %d x seq %d: step ms p50 %.3f "
+        "(all %s), %.1f tokens/s; max_memory_allocated %d against the dry-run's %d; %.4g "
+        "FLOP a step, %.2f TFLOP/s achieved, %.4f of 989; roofline terms ms: compute %.3f, "
+        "memory %.3f (unfused eager bytes), collective %.3f; losses %s; launches %s"
+        % (card, TRAIN_ARCH, t["layers"], t["remat_policy"], t["batch"], t["seq"],
+           t["step_ms"]["p50"], json.dumps(t["step_ms"]["all"]), t["tokens_per_s"],
+           t["max_memory_allocated"], t["estimate_peak_bytes"], t["flops"], t["achieved_tflops"],
+           t["peak_share"], t["t_compute_ms"], t["t_memory_ms"], t["t_collective_ms"],
+           json.dumps(t["losses"]), json.dumps(t["launches"])))
+    prof = t["profile"]
+    log("roofline path [%s]: (b) %d profiled step: device busy %.3f ms of %.3f s (idle share %s) "
+        "over %d device ops; top ops %s" % (card, prof["steps"], prof["device_busy_ms"],
+                                            prof["wall_s"], prof["device_idle_share"],
+                                            prof["device_op_count"],
+                                            json.dumps(prof["device_ops"][:8])))
+    log("roofline path [%s]: (c) %s train_4k at %d layers, rank 0 of (16, 16) over a %s group of "
+        "%d on the card: max_memory_allocated %d against the dry-run's %d; device busy %.3f ms, "
+        "events %.3f ms, wall %.3f ms; dry-run terms ms: compute %.3f, memory %.3f, collective "
+        "%.3f; seconds %.3f"
+        % (card, TRAIN_ARCH, c["layers"], c["backend"], c["world_size"],
+           c["max_memory_allocated"], c["estimate_peak_bytes"], c["device_busy_ms"],
+           c["event_ms"], c["wall_ms"], c["t_compute_ms"], c["t_memory_ms"],
+           c["t_collective_ms"], r["seconds"]))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mib", type=int, default=16, help="corpus size of the main path")
     ap.add_argument("--out", help="also write every result to this JSON file")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)  # phase 13's processes
     args = ap.parse_args()
 
     import torch
@@ -2492,6 +2817,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.worker:
+        print(json.dumps(worker(json.loads(args.worker))))
+        return 0
     from repro_torch.kernels import _build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2602,9 +2930,12 @@ def main() -> int:
 
     mesh = mesh_path(args.seed, card, train)
     log_mesh(mesh, card)
+
+    roof = roofline_path(args.seed, card)
+    log_roofline(roof, card)
     import torch.distributed as dist
 
-    dist.destroy_process_group()  # the NCCL group phases 11-12 started
+    dist.destroy_process_group()  # the NCCL group phases 11-13 started
 
     sources = {
         "marker_replace": ("src/repro_torch/kernels/csrc/marker_replace.cu",
@@ -2621,7 +2952,7 @@ def main() -> int:
     by_path = {"main": path["launches"], "ops": ops["launches"], "service": service["launches"],
                "fleet": fleet["launches"], "pipeline": pipeline["launches"],
                "serve": serve["launches"], "train": train["launches"],
-               "mesh": mesh["launches"]}
+               "mesh": mesh["launches"], "roofline": roof["launches"]}
     checked = rows + at_path + precode_rows
     kernels = []
     for row in at_path:
@@ -2640,7 +2971,8 @@ def main() -> int:
             "card": card, "build_s": build_s, "launch_floor_ms": floor_ms, "kernel_rows": rows,
             "at_path": at_path, "main_path": path, "precode_rows": precode_rows, "ops_path": ops,
             "service_path": service, "fleet_path": fleet, "pipeline_path": pipeline,
-            "serve_path": serve, "train_path": train, "mesh_path": mesh, "kernels": kernels,
+            "serve_path": serve, "train_path": train, "mesh_path": mesh,
+            "roofline_path": roof, "kernels": kernels,
         }, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

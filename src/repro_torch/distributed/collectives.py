@@ -80,11 +80,27 @@ class _Gather(torch.autograd.Function):
         return reduce_scatter(grad, ctx.mesh, ctx.axis, ctx.dim), None, None, None
 
 
-def _a2a(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+@torch.library.custom_op("repro_torch::all_to_all", mutates_args=())
+def _a2a_op(x: torch.Tensor, group_name: str) -> torch.Tensor:
+    """``dist.all_to_all_single`` as a functional operator: a new tensor
+    out, nothing mutated, so a selective checkpoint can keep its output
+    and the recompute then issues no collective
+    (``models.transformer._remat``)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group(mesh, axis))
+    dist.all_to_all_single(out, x, group=_resolve_process_group(group_name))
     return out
+
+
+@_a2a_op.register_fake
+def _(x: torch.Tensor, group_name: str) -> torch.Tensor:
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _a2a(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    return _a2a_op(x, group(mesh, axis).group_name)
 
 
 class _AllToAll(torch.autograd.Function):

@@ -116,7 +116,11 @@ def moe_layer(
 
     # load-balance aux loss (Switch/GShard form)
     me = probs.mean(dim=0)
-    ce = torch.bincount(idx_topk.reshape(-1), minlength=n_experts).float()
+    # The count per expert at a static shape (bincount's output size depends
+    # on the data, which fake tensors cannot give).
+    flat_idx = idx_topk.reshape(-1)
+    ce = torch.zeros(n_experts, dtype=torch.int64, device=x.device).index_add_(
+        0, flat_idx, torch.ones_like(flat_idx)).float()
     ce = ce / torch.clamp(ce.sum(), min=1.0)
     aux = n_experts * torch.sum(me * ce)
 

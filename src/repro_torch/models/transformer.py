@@ -4,9 +4,11 @@ configs, on PyTorch.
 The counterpart of ``repro.models.transformer``. Parameters are declared
 stacked (``[L, ...]``, ``decoder_defs``, as in the JAX package) and held per
 layer: each stack is an ``nn.ModuleList`` that ``forward`` walks in a
-Python loop (no scan, no remat). Caches are dicts of tensors stacked per
-layer ``[L, B, ...]``; a layer reads and, in decode, writes its slice in
-place.
+Python loop (no scan). In train mode each layer runs under
+``torch.utils.checkpoint`` as ``cfg.remat_policy`` says (``_remat``, the
+JAX package's ``jax.checkpoint`` policies). Caches are dicts of tensors
+stacked per layer ``[L, B, ...]``; a layer reads and, in decode, writes
+its slice in place.
 
 On a mesh (``ctx = ModelContext(mesh, rules)``) every tensor is this
 rank's block: the batch rows of its DP coordinates, and the heads, FFN
@@ -33,6 +35,7 @@ Three execution modes:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -424,6 +427,63 @@ def _block(
     return x, (cache_out or None), aux
 
 
+#: The products whose outputs ``dots`` keeps: the JAX package's
+#: ``dots_with_no_batch_dims_saveable`` (``torch.einsum`` reaches one of
+#: these for every contraction).
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default))
+#: A layer's weights whose products carry a batch dim (the routed experts'
+#: ``ecd,edf->ecf``): ``dots`` recomputes them, as the JAX policy does.
+_BATCHED_WEIGHTS = frozenset(("moe.w_gate", "moe.w_up", "moe.w_down"))
+
+
+def _remat(fn, policy: str, layer):
+    """``fn`` (one layer) under ``torch.utils.checkpoint``, as
+    ``repro.models.transformer._remat`` wraps the scan body:
+
+      * ``none``: every activation kept;
+      * ``full``: only the layer's input kept, the rest recomputed in the
+        backward;
+      * ``dots``: also the outputs of the products of an activation with a
+        weight of ``layer`` (the projections, the MLP, the router; not the
+        routed experts' batched products), so the backward recomputes the
+        norms, RoPE, attention and the collectives;
+      * ``dots_plus_collectives``: also the outputs of the MoE all-to-alls
+        (``collectives.all_to_all``), so the backward does not send the
+        expert dispatch and combine again; the JAX package keeps the
+        routed-expert output to the same end.
+
+    A product is recognised by its operand: a view of one of the layer's
+    weights shares its storage, whatever reshape ``einsum`` made of it. The
+    recompute runs the layer's code again, so every rank issues the same
+    collectives in the same order."""
+    if policy == "none":
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    if policy == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if policy not in ("dots", "dots_plus_collectives"):
+        raise ValueError("unknown remat policy %r" % policy)
+    from torch.multiprocessing.reductions import StorageWeakRef
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    weights = {StorageWeakRef(w.untyped_storage()) for name, w in layer.named_parameters()
+               if name not in _BATCHED_WEIGHTS}
+    saved = {torch.ops.repro_torch.all_to_all.default} \
+        if policy == "dots_plus_collectives" else set()
+
+    def save(ctx, op, *args, **kwargs):
+        if op in saved or (op in _DOTS and any(
+                isinstance(a, torch.Tensor) and StorageWeakRef(a.untyped_storage()) in weights
+                for a in args)):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    contexts = functools.partial(create_selective_checkpoint_contexts, save)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
+
+
 def _layer_cache(caches: Optional[Dict[str, Any]], i: int):
     """Layer ``i``'s slice of stacked caches: views, so writes land in them."""
     if caches is None:
@@ -453,12 +513,12 @@ def _run_stack(
 ):
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = []
+    policy = cfg.remat_policy if mode == "train" else "none"
     for i, p in enumerate(layers):
-        x, cache_out, aux = _block(
-            cfg, p, x, positions,
-            moe=moe, mode=mode, cache=_layer_cache(caches, i), cache_pos=cache_pos,
-            q_chunk=q_chunk, ctx=ctx,
-        )
+        block = functools.partial(_block, cfg, p, moe=moe, mode=mode,
+                                  cache=_layer_cache(caches, i), cache_pos=cache_pos,
+                                  q_chunk=q_chunk, ctx=ctx)
+        x, cache_out, aux = _remat(block, policy, p)(x, positions)
         aux_total = aux_total + aux
         per_layer.append(cache_out)
     if mode == "prefill":

@@ -28,8 +28,9 @@ JAX package does:
   5. the updated blocks are gathered over ``data`` back into the
      parameters' own placement.
 The optimizer state on a mesh holds each moment as this rank's block of
-the stacked leaf (``place_opt_state`` converts the one-device state). Remat
-(``cfg.remat_policy``) is not ported: the forward keeps every activation.
+the stacked leaf (``place_opt_state`` converts the one-device state). The
+forward runs each layer under the config's remat policy
+(``cfg.remat_policy``, ``models.transformer._remat``).
 """
 
 from __future__ import annotations

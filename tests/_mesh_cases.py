@@ -208,7 +208,45 @@ def torch_case(name: str):
         return _torch_serve()
     if name == "restore":
         return _torch_restore()
+    if name == "remat_a2a":
+        return _torch_remat_a2a()
     raise ValueError(name)
+
+
+def _torch_remat_a2a():
+    """deepseek-moe-16b (smoke width, fp32) on (data, model) = (2, 1),
+    ep = 2: the MoE all-to-alls of one forward and of its backward under
+    each remat policy, counted by the dry-run's collective counter."""
+    import torch
+
+    from repro_torch.distributed import default_rules
+    from repro_torch.launch.dryrun import StepCounter
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import tree_tensors
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.train_step import local_rows
+
+    mesh = make_mesh((2, 1), ("data", "model"), device="cpu")
+    model = _torch_model("deepseek-moe-16b", "fp32")
+    cfg = model.cfg
+    step, _ = make_train_step(model, mesh, default_rules(mesh), AdamWConfig(**OPT))
+    batch = local_rows(mesh, ("data",), {k: torch.from_numpy(v)
+                                         for k, v in batches(cfg.vocab_size, 1)[0].items()})
+    params = tree_tensors(model.param_tree())
+    out = {"moe_layers": np.int64(cfg.n_layers - cfg.first_dense_layers)}
+    for policy in ("none", "dots", "dots_plus_collectives"):
+        model.cfg = dataclasses.replace(cfg, remat_policy=policy)
+        counts = []
+        with StepCounter() as fwd:
+            loss, _ = model.loss(batch, step.ctx)
+        with StepCounter() as bwd:
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        for c in (fwd, bwd):
+            counts.append(sum(1 for r in c.collectives if r["kind"] == "all-to-all"))
+        out[policy] = np.array(counts)
+        out[policy + "_loss"] = loss.detach().numpy()
+        out[policy + "_grads"] = [np.zeros(0) if g is None else g.numpy() for g in grads]
+    return out
 
 
 def _torch_moe(cf: float):
