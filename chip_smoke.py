@@ -142,15 +142,22 @@ Phases, each fatal on failure:
      the host, and granite-3-2b at its 40 layers through
      repro_torch.launch.train.run on phase 11's shards at the largest
      batch estimated under 72 GB, 2 warm, 4 timed and 1 profiled step,
-     beside the estimate's memory, FLOPs and roofline terms; (c) in a
-     worker process, rank 0 of granite-3-2b train_4k on (16, 16) over a
-     fake group of 256, cut to 2 layers, its step on real tensors on the
-     card (the collectives move nothing) beside the dry-run's estimate of
-     that cell. Fatal: a loss or gradient norm (1e-4) that differs from
-     none's, dots' memory not below none's, no batch under the budget, a
-     loss not finite, a kernel that did not launch, a tensor off the
-     card, the engine erred or fell back, or the cell not on a fake group
-     of 256 on the card;
+     beside the estimate's memory, FLOPs and roofline terms; (c) rank 0 of
+     three production cells on (16, 16) over a fake group of 256, each in
+     a worker process, on real tensors on the card (the collectives move
+     nothing; a gather's other blocks are filled with this rank's own),
+     beside the dry-run's estimate of the same cut cell, made in worker
+     processes on the host from phase 11 on: granite-3-2b train_4k
+     cut to 2 layers, one warm and one measured train step; xlstm-350m
+     train_4k at full width cut to one group of 8 blocks and 8 rows a
+     rank, the same; hymba-1.5b decode_32k at full width cut to 2 layers,
+     its ring split 64 slots a rank: a prefill of 1 084 tokens and 8
+     decode steps on slots 60-67, steps 2-8 measured. Fatal: a loss or
+     gradient norm (1e-4) that differs from none's, dots' memory not below
+     none's, no batch under the budget, a loss or logit not finite, a
+     kernel that did not launch, a tensor off the card, the engine erred
+     or fell back, or a cell not on a fake group of 256 on the card (a
+     NotImplementedError ends the worker, which is fatal too);
   then one JSON line of kernel results and, last, the {"ok": true, ...}
   line.
 
@@ -165,6 +172,7 @@ import base64
 import contextlib
 import gzip
 import json
+import math
 import os
 import statistics
 import struct
@@ -2516,6 +2524,19 @@ ROOF_WARM, ROOF_TIMED, ROOF_PROFILED = 2, 4, 1
 ROOF_BUDGET = 72e9  # the dry-run's estimate of the one-card step must stay under this
 ROOF_BATCHES = (1, 2, 3, 4)  # estimated in parallel; the largest under the budget trains
 CELL_LAYERS = 2  # depth of the production cell run on the card (its CE alone is ~65 GB)
+# Phase 13 (c): production cells on (16, 16), rank 0 on the card over a fake
+# group of 256, each in a worker of its own: (arch, shape, layers, global
+# batch or None for the shape's own). xlstm-350m keeps one group of 8 blocks
+# (7 mLSTM + 1 sLSTM); its 16 rows a rank would need about 92 GB by the
+# dry-run, so it keeps 8. hymba-1.5b decode_32k keeps 2 layers.
+CELL_LEGS = (("granite-3-2b", "train_4k", CELL_LAYERS, None),
+             ("xlstm-350m", "train_4k", 8, 128),
+             ("hymba-1.5b", "decode_32k", 2, None))
+# hymba's leg: a prefill one turn of the 1024-slot ring and 60 tokens past
+# it, then decode steps on slots 60-67, across the end of rank 0's 64 slots.
+CELL_PREFILL = 1024 + 60
+CELL_DECODE_STEPS = 8
+PR20_GRANITE_CELL = {"flops": 4.48e13, "max_memory_allocated": 68_304_327_680}
 GNORM_RTOL = 1e-4  # the embedding's backward adds with atomics on the card
 
 
@@ -2540,17 +2561,135 @@ def _answer(proc, timeout: float = 600.0) -> dict:
     return json.loads(out.strip().splitlines()[-1])
 
 
+@contextlib.contextmanager
+def _defined_fake_collectives():
+    """The fake group's collectives return at once and write nothing, so a
+    gather's other blocks would be whatever memory held: here every block
+    is this rank's own (as if each rank held rank 0's data), so the values
+    downstream are defined and their finiteness means something. Nothing
+    else changes: reductions keep this rank's partial, as they do."""
+    import torch.distributed as dist
+
+    real = (dist.all_gather, dist.reduce_scatter_tensor, dist.all_to_all_single)
+
+    def all_gather(parts, x, *a, **kw):
+        work = real[0](parts, x, *a, **kw)
+        for part in parts:
+            part.copy_(x)
+        return work
+
+    def reduce_scatter_tensor(out, x, *a, **kw):
+        work = real[1](out, x, *a, **kw)
+        out.copy_(x[: out.shape[0]])
+        return work
+
+    def all_to_all_single(out, x, *a, **kw):
+        work = real[2](out, x, *a, **kw)
+        out.copy_(x)
+        return work
+
+    dist.all_gather, dist.reduce_scatter_tensor, dist.all_to_all_single = (
+        all_gather, reduce_scatter_tensor, all_to_all_single)
+    try:
+        yield
+    finally:
+        dist.all_gather, dist.reduce_scatter_tensor, dist.all_to_all_single = real
+
+
+def _cell_shape(spec: dict):
+    import dataclasses
+
+    from repro_torch.configs import SHAPES
+
+    shape = SHAPES[spec["shape"]]
+    return dataclasses.replace(shape, global_batch=spec["batch"]) if spec.get("batch") \
+        else shape
+
+
+def _profiled(fn, out: dict):
+    """``fn()`` once under torch.profiler and CUDA events; into ``out``:
+    wall ms (to the synchronize, before the profiler stops), event ms,
+    device busy ms, and the seconds the profiler took to stop and sum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        result = fn()
+        end.record()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    # The device events' durations summed as they come (key_averages() would
+    # first build a Python event tree: minutes for the sLSTM's ~10^6 events).
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and e.name() != "Command Buffer Full") / 1e6
+    out.update(wall_ms=(t1 - t0) * 1e3, event_ms=start.elapsed_time(end), device_busy_ms=busy,
+               profiler_s=time.perf_counter() - t1)
+    return result
+
+
+def _serve_cell(cfg, shape, mesh, rules, gen, out: dict) -> None:
+    """A prefill of CELL_PREFILL tokens and CELL_DECODE_STEPS greedy decode
+    steps of the global batch through make_serve_steps on the fake group:
+    the first step places the caches (the global ones are then dropped),
+    the others are measured."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_serve_steps, prefill_to_decode_caches
+
+    model = build_model(cfg, device="cuda")
+    model.init(gen)
+    prefill, decode, _, _ = make_serve_steps(model, mesh, rules, batch=shape.global_batch,
+                                             max_len=shape.seq_len)
+    params = model.param_tree()
+    prompts = torch.randint(0, cfg.vocab_size, (shape.global_batch, CELL_PREFILL),
+                            generator=gen, device="cuda")
+    logits, pc = prefill(params, {"tokens": prompts})
+    caches = prefill_to_decode_caches(cfg, model, pc, shape.global_batch, shape.seq_len,
+                                      CELL_PREFILL)
+    del pc
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    finite = [bool(torch.isfinite(logits).all())]
+    tok, logits, caches = decode(params, tok, caches, CELL_PREFILL)
+    finite.append(bool(torch.isfinite(logits).all()))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps():
+        nonlocal tok, logits, caches
+        for i in range(1, CELL_DECODE_STEPS):
+            tok, logits, caches = decode(params, tok, caches, CELL_PREFILL + i)
+            finite.append(bool(torch.isfinite(logits).all()))
+
+    _profiled(steps, out)
+    attn = caches["layers"]["attn"]
+    out.update(measured="decode steps 2-%d" % CELL_DECODE_STEPS,
+               max_memory_allocated=torch.cuda.max_memory_allocated(), finite=all(finite),
+               on_card=all(t.device.type == "cuda" for t in dryrun._tensors((params, caches))),
+               ring_block={k: list(v.shape) for k, v in attn.items()},
+               # the positions slots 56-71 hold: the prefill's second turn,
+               # the decode steps, the first turn
+               ring_pos_56_71=attn["pos"][0, 56:72].tolist())
+
+
 def worker(spec: dict) -> dict:
     """What a phase 13 worker computes, in a process whose fake group is
-    its own: ``estimate`` (the dry-run's count of one step on fake
-    tensors, on the host), or ``cell`` (the production cell's rank 0 on
-    the card: first its estimate, then the step on real tensors, once to
-    warm up and once measured)."""
+    its own: ``estimate`` (the dry-run's count of one step on fake tensors
+    on a one-card mesh, on the host), ``cell_estimate`` (the same of a
+    production cell, cut as ``spec`` says), or ``cell`` (the production
+    cell's rank 0 on the card: a train step, once to warm up and once
+    measured, or hymba's prefill and decode steps, ``_serve_cell``)."""
     import dataclasses
 
     import torch
 
-    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.distributed import default_rules
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import PRODUCTION_SHAPE
@@ -2561,33 +2700,33 @@ def worker(spec: dict) -> dict:
         mesh = dryrun.fake_mesh((1, 1), ("data", "model"), "cpu")
         m = dryrun.run_step(cfg, shape, mesh, device="cpu")
         return dryrun.cell_result(cfg, shape, m, 1)
-    shape = SHAPES[spec["shape"]]
-    mesh = dryrun.production_mesh(False, "cuda")
-    estimate = dryrun.cell_result(cfg, shape, dryrun.run_step(cfg, shape, mesh, device="cuda"),
+    shape = _cell_shape(spec)
+    if spec["kind"] == "cell_estimate":
+        mesh = dryrun.production_mesh(False, "cpu")
+        return dryrun.cell_result(cfg, shape, dryrun.run_step(cfg, shape, mesh, device="cpu"),
                                   256)
+    mesh = dryrun.production_mesh(False, "cuda")
     import torch.distributed as dist
 
-    out = {"estimate": estimate, "backend": dist.get_backend(),
-           "world_size": dist.get_world_size(), "mesh": dict(zip(*PRODUCTION_SHAPE[False][::-1]))}
-    args, rows, run = dryrun.prepare_step(cfg, shape, mesh, default_rules(mesh), "cuda")
-    out["on_card"] = all(t.device.type == "cuda" for t in dryrun._tensors((args, rows)))
-    run()  # warm: cuBLAS handles, workspaces
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    from torch.profiler import ProfilerActivity, profile
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        run()
-        end.record()
+    out = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+           "mesh": dict(zip(*PRODUCTION_SHAPE[False][::-1])), "rows": shape.global_batch // 16}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(spec["seed"])
+    rules = default_rules(mesh)
+    with _defined_fake_collectives():
+        if shape.kind == "decode":
+            _serve_cell(cfg, shape, mesh, rules, gen, out)
+            return out
+        args, rows, run = dryrun.prepare_step(cfg, shape, mesh, rules, "cuda", generator=gen)
+        out["on_card"] = all(t.device.type == "cuda" for t in dryrun._tensors((args, rows)))
+        losses = [float(run()[2]["loss"])]  # warm: cuBLAS handles, workspaces
         torch.cuda.synchronize()
-    out["wall_ms"] = (time.perf_counter() - t0) * 1e3
-    out["event_ms"] = start.elapsed_time(end)
-    out["device_busy_ms"] = sum(e.self_device_time_total for e in prof.key_averages()
-                                if e.key != "Command Buffer Full") / 1e3
-    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        result = _profiled(run, out)
+    losses.append(float(result[2]["loss"]))
+    out.update(measured="train step 2 of 2", losses=losses,
+               finite=all(math.isfinite(x) for x in losses),
+               max_memory_allocated=torch.cuda.max_memory_allocated())
     return out
 
 
@@ -2657,14 +2796,47 @@ def remat_ab(seed: int, card: str, layers: int, batch: int, seq: int, order) -> 
     return out
 
 
-def roofline_path(seed: int, card: str) -> dict:
+def _legs() -> list:
+    return [{"arch": arch, "shape": shape, "layers": n, "batch": batch}
+            for arch, shape, n, batch in CELL_LEGS]
+
+
+def start_cell_estimates() -> list:
+    """The dry-run's estimate of each of phase 13 (c)'s cut cells, each in a
+    worker process on the host, started now and read by
+    ``production_cells``."""
+    return [_ask(dict(leg, kind="cell_estimate")) for leg in _legs()]
+
+
+def production_cells(seed: int, estimates: list) -> list:
+    """Phase 13 (c): each of CELL_LEGS on the card, one worker after
+    another, beside its estimate (``start_cell_estimates``)."""
+    cells = []
+    for n, (leg, proc) in enumerate(zip(_legs(), estimates)):
+        t0 = time.perf_counter()
+        ce = _answer(proc, timeout=900)
+        t1 = time.perf_counter()
+        cell = _answer(_ask(dict(leg, kind="cell", seed=seed + 131 + n)), timeout=900)
+        cell.update(leg, estimate_wait_s=t1 - t0, worker_s=time.perf_counter() - t1,
+                    estimate_peak_bytes=ce["memory"]["peak_bytes"],
+                    estimate_argument_bytes=ce["memory"]["argument_size_in_bytes"],
+                    t_compute_ms=ce["roofline"]["t_compute"] * 1e3,
+                    t_memory_ms=ce["roofline"]["t_memory"] * 1e3,
+                    t_collective_ms=ce["roofline"]["t_collective"] * 1e3,
+                    flops=ce["cost"]["flops"], bytes=ce["cost"]["bytes accessed"])
+        cells.append(cell)
+    return cells
+
+
+def roofline_path(seed: int, card: str, cell_estimates: list) -> dict:
     """Phase 13: (a) remat A/B, at seq ROOF_SEQ and at phase 11's shape;
     (b) granite-3-2b at its 40 layers and
     sequence ROOF_SEQ through repro_torch.launch.train.run on phase 11's
     shards with the config's remat, at the largest batch whose dry-run
     estimate (mesh (1, 1)) stays under ROOF_BUDGET, against that estimate;
-    (c) rank 0 of granite-3-2b train_4k on (16, 16) over a fake group, on
-    the card, against the dry-run's estimate of that cell."""
+    (c) the production cells of CELL_LEGS on the card, each against the
+    dry-run's estimate of it (``cell_estimates``: ``start_cell_estimates``,
+    started before phase 11 so the host has made them by now)."""
     import shutil
     import tempfile
 
@@ -2685,6 +2857,7 @@ def roofline_path(seed: int, card: str) -> dict:
     out = {"card": card,
            "remat": remat_ab(seed, card, REMAT_LAYERS, REMAT_BATCH, ROOF_SEQ, REMAT_ORDER),
            "remat_host": remat_ab(seed, card, layers, HOST_BATCH, HOST_SEQ, HOST_ORDER)}
+    parts = {"a": time.perf_counter() - t_phase}
     estimates = {b: _answer(p) for b, p in estimates.items()}
     fitting = [b for b, e in estimates.items() if e["memory"]["peak_bytes"] < ROOF_BUDGET]
     if not fitting:
@@ -2738,16 +2911,10 @@ def roofline_path(seed: int, card: str) -> dict:
         "profile": run["profile"],
     }
     torch.cuda.synchronize()
-    cell = _answer(_ask({"kind": "cell", "arch": TRAIN_ARCH, "layers": CELL_LAYERS,
-                         "shape": "train_4k"}), timeout=900)
-    ce = cell["estimate"]
-    cell.update(layers=CELL_LAYERS, estimate_peak_bytes=ce["memory"]["peak_bytes"],
-                t_compute_ms=ce["roofline"]["t_compute"] * 1e3,
-                t_memory_ms=ce["roofline"]["t_memory"] * 1e3,
-                t_collective_ms=ce["roofline"]["t_collective"] * 1e3,
-                flops=ce["cost"]["flops"], bytes=ce["cost"]["bytes accessed"])
-    del cell["estimate"]
-    out["cell"] = cell
+    parts["b"] = time.perf_counter() - t_phase - parts["a"]
+    out["cells"] = production_cells(seed, cell_estimates)
+    parts["c"] = time.perf_counter() - t_phase - parts["a"] - parts["b"]
+    out["seconds_by_part"] = parts
     out["launches"] = launches
     out["engine"] = {"errors": after["errors"] - before["errors"], "fallbacks": after["fallbacks"]}
     out["seconds"] = time.perf_counter() - t_phase
@@ -2760,9 +2927,13 @@ def roofline_path(seed: int, card: str) -> dict:
         problems.append("a parameter, gradient or moment is off the card: %s" % run["devices"])
     if after["errors"] != before["errors"] or after["fallbacks"] != before["fallbacks"]:
         problems.append("the corpus engine erred or fell back")
-    if cell["backend"] != "fake" or cell["world_size"] != 256 or not cell["on_card"]:
-        problems.append("the production cell did not run on the card over a fake group of 256: "
-                        "%s" % json.dumps(cell))
+    for cell in out["cells"]:
+        if cell["backend"] != "fake" or cell["world_size"] != 256 or not cell["on_card"]:
+            problems.append("a production cell did not run on the card over a fake group of "
+                            "256: %s" % json.dumps(cell))
+        if not cell["finite"]:
+            problems.append("a production cell's loss or logits are not finite: %s"
+                            % json.dumps(cell))
     if problems:
         raise AssertionError("roofline path: %s; %s" % ("; ".join(problems),
                                                         json.dumps(out)[:4000]))
@@ -2770,7 +2941,7 @@ def roofline_path(seed: int, card: str) -> dict:
 
 
 def log_roofline(r: dict, card: str) -> None:
-    t, c = r["train"], r["cell"]
+    t = r["train"]
     for a in (r["remat"], r["remat_host"]):
         log("roofline path [%s]: (a) remat A/B, %s at full width, %d layers, batch %d x seq %d, "
             "in turns %s after one untimed each: max_memory_allocated %s; ms median %s; runs %s"
@@ -2794,14 +2965,28 @@ def log_roofline(r: dict, card: str) -> None:
                                             prof["wall_s"], prof["device_idle_share"],
                                             prof["device_op_count"],
                                             json.dumps(prof["device_ops"][:8])))
-    log("roofline path [%s]: (c) %s train_4k at %d layers, rank 0 of (16, 16) over a %s group of "
-        "%d on the card: max_memory_allocated %d against the dry-run's %d; device busy %.3f ms, "
-        "events %.3f ms, wall %.3f ms; dry-run terms ms: compute %.3f, memory %.3f, collective "
-        "%.3f; seconds %.3f"
-        % (card, TRAIN_ARCH, c["layers"], c["backend"], c["world_size"],
-           c["max_memory_allocated"], c["estimate_peak_bytes"], c["device_busy_ms"],
-           c["event_ms"], c["wall_ms"], c["t_compute_ms"], c["t_memory_ms"],
-           c["t_collective_ms"], r["seconds"]))
+    for c in r["cells"]:
+        cuts = "%d layers" % c["layers"]
+        if c["batch"]:
+            cuts += ", global batch %d (%d rows a rank)" % (c["batch"], c["rows"])
+        log("roofline path [%s]: (c) %s %s cut to %s; rank 0 of (16, 16) over a %s group of %d "
+            "on the card, %s: max_memory_allocated %d against the dry-run's %d (arguments %d); "
+            "device busy %.3f ms, events %.3f ms, wall %.3f ms; dry-run %.6g FLOP, %.6g bytes, "
+            "terms ms: compute %.3f, memory %.3f, collective %.3f; %s"
+            % (card, c["arch"], c["shape"], cuts, c["backend"], c["world_size"], c["measured"],
+               c["max_memory_allocated"], c["estimate_peak_bytes"], c["estimate_argument_bytes"],
+               c["device_busy_ms"], c["event_ms"], c["wall_ms"], c["flops"], c["bytes"],
+               c["t_compute_ms"], c["t_memory_ms"], c["t_collective_ms"],
+               json.dumps({k: c[k] for k in ("losses", "ring_block", "ring_pos_56_71",
+                                             "estimate_wait_s", "worker_s", "profiler_s")
+                           if k in c})))
+        if c["arch"] == TRAIN_ARCH:
+            log("roofline path [%s]: (c) %s against PR 20's leg: %.6g FLOP against %.6g, "
+                "max_memory_allocated %d against %d" % (
+                    card, c["arch"], c["flops"], PR20_GRANITE_CELL["flops"],
+                    c["max_memory_allocated"], PR20_GRANITE_CELL["max_memory_allocated"]))
+    log("roofline path [%s]: seconds %.3f (by part %s)" % (card, r["seconds"],
+                                                        json.dumps(r["seconds_by_part"])))
 
 
 def main() -> int:
@@ -2925,13 +3110,14 @@ def main() -> int:
     for row in serve["full_width_families"]:
         log_family(row, card)
 
+    cell_estimates = start_cell_estimates()  # phase 13 (c)'s, on the host meanwhile
     train = train_path(args.seed, card)
     log_train(train, card)
 
     mesh = mesh_path(args.seed, card, train)
     log_mesh(mesh, card)
 
-    roof = roofline_path(args.seed, card)
+    roof = roofline_path(args.seed, card, cell_estimates)
     log_roofline(roof, card)
     import torch.distributed as dist
 

@@ -7,7 +7,9 @@ pairs of tensor parallelism follow Megatron: ``psum`` (sum forward,
 identity backward) where a partial result leaves a model-sharded region,
 ``copy_to`` (identity forward, sum backward) where a replicated input
 enters one; ``gather_to`` gathers blocks whose every rank then reads its
-own part (its backward a reduce-scatter). ``pmean`` is the adjoint pair
+own part (its backward a reduce-scatter), ``gather_from`` blocks whose
+every rank then reads the whole, as every other rank does (its backward
+this rank's block of the gradient). ``pmean`` is the adjoint pair
 of a mean (its backward divides by the axis size), ``all_to_all`` its own
 adjoint and ``shift`` the adjoint pair of a ring ``ppermute``. The ``*_`` forms and the gathers and
 scatters carry no gradient. Each is the identity on an axis of size 1 or
@@ -78,6 +80,18 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return reduce_scatter(grad, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.n = mesh, axis, dim, x.shape[dim]
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = ctx.mesh.get_local_rank(ctx.axis) * ctx.n
+        return grad.narrow(ctx.dim, start, ctx.n), None, None, None
 
 
 @torch.library.custom_op("repro_torch::all_to_all", mutates_args=())
@@ -162,6 +176,16 @@ def gather_to(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     if not _live(mesh, axis):
         return x
     return _Gather.apply(x, mesh, axis, dim % x.dim())
+
+
+def gather_from(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's block of ``x`` along ``axis``, concatenated on ``dim``,
+    for a replicated consumer: every rank computes the same function of
+    the whole, so each block's gradient is this rank's part of the
+    gradient, taken once."""
+    if not _live(mesh, axis):
+        return x
+    return _GatherFrom.apply(x, mesh, axis, dim % x.dim())
 
 
 def pmean(x: torch.Tensor, mesh, *axes: str) -> torch.Tensor:

@@ -36,9 +36,8 @@ What a cell counts, per chip and per step:
 
 The figures are counts of the port's own eager step and bounds from the
 H100 data sheet's peaks; none is a measurement on a card. A cell the port
-cannot run (a ``NotImplementedError``: tensor parallelism of the xLSTM
-forms, a ring cache split over ``model``) is recorded as ``unsupported``
-with the error's text, not as an error. Nothing starts at import; a
+cannot run (a ``NotImplementedError``) is recorded as ``unsupported`` with
+the error's text, not as an error. Nothing starts at import; a
 process holds one fake group, whose world size is fixed when it starts, so
 ``--mesh both`` runs each mesh in a process of its own. ``--device``
 places the fake tensors (``cuda``, the default, needs a card; ``cpu`` on
@@ -242,9 +241,10 @@ def _fake_tensors():
 # one cell
 # ---------------------------------------------------------------------------
 
-def prepare_step(cfg, shape: ShapeConfig, mesh, rules, device):
+def prepare_step(cfg, shape: ShapeConfig, mesh, rules, device, generator=None):
     """Rank 0's step of a cell, ready to run once: (arguments, the batch
-    rows among them, run)."""
+    rows among them, run). ``generator`` (on ``device``) draws the
+    parameters; without it they keep what their allocation held."""
     from ..distributed.sharding import batch_partition, spec_axes
     from ..models.model import build_model
     from ..models.transformer import ModelContext
@@ -253,6 +253,8 @@ def prepare_step(cfg, shape: ShapeConfig, mesh, rules, device):
     from ..train.train_step import local_rows, make_train_step, param_shardings, place_model
 
     model = build_model(cfg, device=device)
+    if generator is not None:
+        model.init(generator)
     specs = input_specs(cfg, shape)
     batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=device) for k, v in specs.items()}
     rows = spec_axes(batch_partition(mesh, shape.global_batch))

@@ -218,16 +218,20 @@ class XLSTMModel(_Facade):
     Train mode runs the mLSTM's parallel form (S <= 256), prefill its
     chunkwise form and returns every block's state, decode its recurrent
     step, writing the states in place. The caches: ``{"m": {"c", "n",
-    "m"} [G, L, B, ...], "s": (c, n, m, h) [G, B, H, Dh]}``."""
+    "m"} [G, L, B, ...], "s": (c, n, m, h) [G, B, H, Dh]}``. On a mesh the
+    blocks run on this rank's ``ssm_inner`` blocks (``xlstm.py``), the
+    embedding and the logits on its vocabulary rows, as the decoders'
+    do."""
 
     def __init__(self, cfg: ModelConfig, device):
         n_m = max(1, cfg.slstm_every) - 1
         super().__init__(cfg, device, {"mlstm": 2 if n_m else 1, "slstm": 1})
         self.n_m = n_m
 
-    def _run(self, tokens, *, mode: str, caches=None):
+    def _run(self, tokens, *, mode: str, caches=None, ctx: Optional[ModelContext] = None):
         cfg = self.cfg
-        x = self["embed"][tokens]
+        mesh = ctx.mesh if ctx is not None and ctx.tp > 1 else None
+        x = transformer.sharded_embed_lookup(ctx, self["embed"], tokens, cfg.vocab_size)
         want_state = mode != "train"
         m_states, s_states = [], []
         for g, (p_m, p_s) in enumerate(zip(self["mlstm"], self["slstm"])):
@@ -237,20 +241,21 @@ class XLSTMModel(_Facade):
                 if mode == "decode":
                     cache = {k: v[g, j] for k, v in caches["m"].items()}
                 x, st = xlstm.mlstm_block(p_m[j], x, cfg.n_heads, state=cache,
-                                          return_state=want_state)
+                                          return_state=want_state, mesh=mesh)
                 if mode == "decode":
                     for k, v in st.items():
                         cache[k].copy_(v)
                 group_m.append(st)
             cache = tuple(v[g] for v in caches["s"]) if mode == "decode" else None
-            x, st = xlstm.slstm_block(p_s, x, cfg.n_heads, state=cache, return_state=want_state)
+            x, st = xlstm.slstm_block(p_s, x, cfg.n_heads, state=cache, return_state=want_state,
+                                      mesh=mesh)
             if mode == "decode":
                 for dst, v in zip(cache, st):
                     dst.copy_(v)
             m_states.append(group_m)
             s_states.append(st)
         x = rms_norm(x, self["final_norm"])
-        logits = torch.einsum("bsd,dv->bsv", x, self["unembed"])
+        logits = transformer.unembed(cfg, self, x, ctx)
         if mode == "prefill":
             caches = {"s": tuple(torch.stack([st[i] for st in s_states]) for i in range(4))}
             if self.n_m:
@@ -261,26 +266,24 @@ class XLSTMModel(_Facade):
 
     def logits(self, batch, ctx: Optional[ModelContext] = None) -> torch.Tensor:
         """Train-mode (teacher-forced) logits of every position of
-        ``batch["tokens"]``."""
-        _data_parallel_only(ctx, self.cfg)
-        return self._run(batch["tokens"], mode="train")[0]
+        ``batch["tokens"]`` (on a mesh, this rank's vocabulary columns when
+        the vocabulary shards over ``model``)."""
+        return self._run(batch["tokens"], mode="train", ctx=ctx)[0]
 
     def loss(self, batch, ctx: Optional[ModelContext] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         tokens = batch["tokens"]
         return cross_entropy(self.logits({"tokens": tokens[:, :-1]}, ctx), tokens[:, 1:],
-                             ctx=ctx)
+                             ctx=ctx, vocab=self.cfg.vocab_size)
 
     def prefill(self, batch, ctx: Optional[ModelContext] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        _data_parallel_only(ctx, self.cfg)
-        logits, caches = self._run(batch["tokens"], mode="prefill")
+        logits, caches = self._run(batch["tokens"], mode="prefill", ctx=ctx)
         return logits[:, -1:], caches
 
     def decode_step(self, tokens, caches, cache_pos: int, ctx: Optional[ModelContext] = None
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        _data_parallel_only(ctx, self.cfg)
-        return self._run(tokens, mode="decode", caches=caches)
+        return self._run(tokens, mode="decode", caches=caches, ctx=ctx)
 
     def init_decode_caches(self, batch: int, max_len: int, device=None) -> Dict[str, Any]:
         cfg = self.cfg
@@ -338,12 +341,6 @@ class EncDecModel(_Facade):
     def init_decode_caches(self, batch: int, max_len: int, device=None) -> Dict[str, Any]:
         return encdec.init_decoder_caches(self.cfg, batch, max_len, self.cfg.encoder_frames,
                                           device=self.device if device is None else device)
-
-
-def _data_parallel_only(ctx: Optional[ModelContext], cfg: ModelConfig) -> None:
-    if ctx is not None and ctx.tp > 1:
-        raise NotImplementedError("tensor parallelism of the xLSTM forms (%s) is not ported; "
-                                  "run it on a mesh with model = 1" % cfg.name)
 
 
 FAMILIES = {"ssm": XLSTMModel, "audio": EncDecModel}

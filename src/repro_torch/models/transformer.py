@@ -274,23 +274,32 @@ def tp_gqa_attention(ctx: Optional[ModelContext], p, h, positions, *, n_heads: i
     """``layers.gqa_attention_block`` (its keywords in ``kw``) on this rank's
     heads when they shard over ``model``: ``h`` enters through ``copy_to``,
     the output leaves through ``psum``. When the KV heads stay whole (their
-    count does not divide ``model``) each query head reads its own and the
-    KV weights' gradient is summed over ``model``; decode against caches
-    split over ``model`` is ``_gqa_split_decode``."""
+    count does not divide ``model``) each query head reads its own, and
+    the KV weights' gradient is summed over ``model``: where no cache is
+    written (train) a rank projects only the KV heads its query heads read,
+    a slice of the whole ``wk``/``wv`` whose gradient lands in zeros of the
+    whole leaf; the prefill projects every KV head, as the cache keeps
+    them. Decode against caches split over ``model`` is
+    ``_gqa_split_decode``."""
     mesh = _mesh(ctx)
     if _split_cache(ctx, kw):
         return _gqa_split_decode(p, h, positions, kw["cache"], kw["cache_pos"], mesh,
                                  n_heads=n_heads, rope_theta=kw.get("rope_theta", 10000.0),
-                                 use_rope=kw.get("use_rope", True))
+                                 use_rope=kw.get("use_rope", True),
+                                 sliding_window=kw.get("sliding_window"))
     if _tp(ctx) == 1 or p["wq"].shape[1] == n_heads:
         return gqa_attention_block(p, h, positions, **kw)
     kv_index = None
     if p["wk"].shape[1] == n_kv_heads and n_kv_heads < n_heads:
-        n_local = p["wq"].shape[1]
+        n_local, group = p["wq"].shape[1], n_heads // n_kv_heads
         first = axis_index(mesh, "model") * n_local
-        kv_index = (first + torch.arange(n_local, device=h.device)) // (n_heads // n_kv_heads)
-        p = _with(p, **{k: collectives.copy_to(p[k], mesh, "model")
-                        for k in ("wk", "wv", "bk", "bv") if k in p})
+        lo, n_kv = 0, n_kv_heads
+        if kw.get("mode", "train") == "train":  # this rank's KV heads only
+            lo = first // group
+            n_kv = (first + n_local - 1) // group + 1 - lo
+        kv_index = (first + torch.arange(n_local, device=h.device)) // group - lo
+        p = _with(p, **{k: collectives.copy_to(p[k], mesh, "model").narrow(-2, lo, n_kv)
+                        for k in ("wk", "wv", "bk", "bv") if k in p})  # [.., K, Dh]
     y, cache = gqa_attention_block(p, collectives.copy_to(h, mesh, "model"), positions,
                                    kv_index=kv_index, **kw)
     return collectives.psum(y, mesh, "model"), cache
@@ -310,15 +319,18 @@ def _split_softmax_values(scores: torch.Tensor, values, mesh) -> torch.Tensor:
 
 
 def _gqa_split_decode(p, h, positions, cache, cache_pos: int, mesh, *, n_heads: int,
-                      rope_theta: float, use_rope: bool = True):
-    """GQA decode against a linear cache whose positions are split over
-    ``model`` (its KV heads whole: their count does not divide ``model``).
-    The new token's K/V land on the rank holding ``cache_pos``; every query
-    head (gathered when they shard over ``model``) attends to each rank's
-    positions, combined by ``_split_softmax_values``; the output projection
-    runs on this rank's heads and is summed over ``model``."""
-    if "pos" in cache:
-        raise NotImplementedError("a ring cache split over model is not ported")
+                      rope_theta: float, use_rope: bool = True,
+                      sliding_window: Optional[int] = None):
+    """GQA decode against a cache whose positions (a linear cache) or
+    slots (a sliding-window ring) are split over ``model``, its KV heads
+    whole (their count does not divide ``model``). The new token's K/V land
+    on the rank holding ``cache_pos`` (a ring's slot ``cache_pos % W``;
+    every rank writes the ring's whole ``pos``); every query head
+    (gathered when they shard over ``model``) attends to each rank's
+    positions, masked by position (a ring's slots by the positions ``pos``
+    gives them, as ``layers.ring_attention_decode`` masks them), combined
+    by ``_split_softmax_values``; the output projection runs on this rank's
+    heads and is summed over ``model``."""
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
@@ -328,10 +340,22 @@ def _gqa_split_decode(p, h, positions, cache, cache_pos: int, mesh, *, n_heads: 
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     k_cache, v_cache = cache["k"], cache["v"]
-    first = axis_index(mesh, "model") * k_cache.shape[1]
-    if first <= cache_pos < first + k_cache.shape[1]:
-        k_cache[:, cache_pos - first] = k[:, 0]
-        v_cache[:, cache_pos - first] = v[:, 0]
+    n_slots = k_cache.shape[1]
+    first = axis_index(mesh, "model") * n_slots
+    ring = "pos" in cache
+    at = cache_pos % cache["pos"].shape[0] if ring else cache_pos
+    if first <= at < first + n_slots:
+        k_cache[:, at - first] = k[:, 0]
+        v_cache[:, at - first] = v[:, 0]
+    if ring:
+        pos = cache["pos"]
+        pos[at] = cache_pos
+        kv_pos = pos[first : first + n_slots]
+        window = sliding_window or pos.shape[0]
+        valid = (kv_pos >= 0) & (kv_pos <= cache_pos) & (kv_pos > cache_pos - window)
+    else:
+        kv_pos = first + torch.arange(n_slots, device=h.device)
+        valid = kv_pos <= cache_pos
     n_local = q.shape[2]
     heads_split = n_local < n_heads
     if heads_split:
@@ -341,8 +365,7 @@ def _gqa_split_decode(p, h, positions, cache, cache_pos: int, mesh, *, n_heads: 
     scores = torch.einsum("bqkgd,bskd->bkgqs",
                           at_least_fp32(q.reshape(b, 1, kv_heads, n_heads // kv_heads, dh)),
                           at_least_fp32(k_cache)) * (1.0 / math.sqrt(dh))
-    kv_pos = first + torch.arange(k_cache.shape[1], device=h.device)
-    scores = torch.where((kv_pos <= cache_pos)[None, None, None, None, :], scores, -1e30)
+    scores = torch.where(valid[None, None, None, None, :], scores, -1e30)
     out = _split_softmax_values(
         scores, lambda probs: torch.einsum("bkgqs,bskd->bqkgd", probs.to(v_cache.dtype), v_cache),
         mesh).reshape(b, 1, n_heads, dh)

@@ -19,6 +19,28 @@ Where the JAX package scans (over chunks, over time), this module loops in
 Python. Gates and memories are fp32 (fp64 for an fp64 model); the bf16
 products the JAX package accumulates in fp32 (``preferred_element_type``)
 take fp32 operands here, an exact cast, so the sums are the same.
+
+With ``mesh`` (tensor parallelism), each ``ssm_inner`` leaf is this rank's
+block of ``model``, where the JAX package annotates the layouts and leaves
+the split to GSPMD. The heads stay whole (xlstm-350m has 4, which cannot
+split 16 ways), so every rank runs the cell on every head:
+
+  * mLSTM: ``w_up`` packs ``inner | z`` in one ``ssm_inner`` dim, so its
+    output blocks are gathered (``collectives.gather_to``) and each rank
+    takes its channels of ``inner`` and of ``z``; ``w_qkv`` and ``w_if``
+    contract those channels, summed over ``model`` (``psum``), so q, k, v
+    and the gates are whole on every rank; the cell's output is normalized
+    over all its channels and each rank keeps its block (``out_norm``'s),
+    gated by its ``z``, and ``w_down``'s partial product is summed over
+    ``model``. In decode the matrix memory ``c [B, H, Dk, Dv]`` and ``n
+    [B, H, Dk]`` hold this rank's ``Dk`` rows (``cache_spec``): the update
+    reads this rank's rows of k, and each contraction over ``Dk`` (``C q``,
+    ``n . q``) is a sum over ``model``, so the state never leaves its rank;
+    ``m`` is whole.
+  * sLSTM: ``w_gates`` and ``b_gates`` split their columns, and a head's
+    four gates are contiguous, so the gate pre-activations are gathered
+    whole (``collectives.gather_from``: every rank then steps every head);
+    ``r_gates``, ``w_out`` and the state are whole.
 """
 
 from __future__ import annotations
@@ -29,6 +51,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import collectives
+from ..distributed.sharding import axis_index, axis_size
 from .layers import ParamDef, at_least_fp32, rms_norm, silu
 
 PROJ_FACTOR = 2  # mLSTM block up-projection factor
@@ -61,6 +85,17 @@ def slstm_defs(n_layers: int, d_model: int, n_heads: int) -> Dict[str, Any]:
         "out_norm": ParamDef(L + (d_model,), pl + ("embed",), init="zeros"),
         "w_out": ParamDef(L + (d_model, d_model), pl + ("embed", "embed")),
     }
+
+
+def _block(mesh, n: int) -> Optional[slice]:
+    """This rank's block of ``n`` channels along ``model``; None off a mesh
+    or where ``n`` does not divide (the dim then stays whole, as
+    ``fit_spec`` leaves it)."""
+    if mesh is None or n % axis_size(mesh, "model"):
+        return None
+    size = n // axis_size(mesh, "model")
+    start = axis_index(mesh, "model") * size
+    return slice(start, start + size)
 
 
 # ---------------------------------------------------------------------------
@@ -109,9 +144,10 @@ def _mlstm_chunkwise(q, k, v, log_i, log_f, *, chunk: int = 256, init_state=None
 
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
     outs = []
-    for i in range(n_chunks):
-        span = slice(i * chunk, (i + 1) * chunk)
-        q_, k_, v_, li, lf = q[:, span], k[:, span], v[:, span], log_i[:, span], log_f[:, span]
+    # Split once: the backward then writes each input's gradient once (a
+    # slice per chunk would add a whole-length zero gradient per chunk).
+    pieces = zip(*(t.split(chunk, dim=1) for t in (q, k, v, log_i, log_f)))
+    for q_, k_, v_, li, lf in pieces:
         kf, vf = at_least_fp32(k_), at_least_fp32(v_)
         Fc = torch.cumsum(lf, dim=1)  # [B,C,H] inclusive cumsum of log f
         # log weights of intra-chunk source u for target t: F_t - F_u + li_u
@@ -145,20 +181,35 @@ def _mlstm_chunkwise(q, k, v, log_i, log_f, *, chunk: int = 256, init_state=None
     return hs[:, :s], {"c": c_mat, "n": n_vec, "m": m_prev}
 
 
-def _mlstm_recurrent_step(state, q, k, v, log_i, log_f):
-    """One decode step. state: dict(c [B,H,Dk,Dv], n [B,H,Dk], m [B,H])."""
+def _mlstm_recurrent_step(state, q, k, v, log_i, log_f, mesh=None):
+    """One decode step. state: dict(c [B,H,Dk,Dv], n [B,H,Dk], m [B,H]);
+    with ``mesh``, ``c`` and ``n`` hold this rank's ``Dk`` rows (``_block``)
+    and the contractions over ``Dk`` are summed over ``model``."""
     dh = q.shape[-1]
     scale = dh ** -0.5
+    rows = _block(mesh, dh)
+    if rows is not None:
+        q, k = q[..., rows], k[..., rows]
     m_new = torch.maximum(log_f + state["m"], log_i)  # [B,H]
     f_ = torch.exp(log_f + state["m"] - m_new)
     i_ = torch.exp(log_i - m_new)
     kf, vf, qf = at_least_fp32(k), at_least_fp32(v), at_least_fp32(q) * scale
     c = f_[..., None, None] * state["c"] + i_[..., None, None] * torch.einsum("bhk,bhv->bhkv", kf, vf)
     n = f_[..., None] * state["n"] + i_[..., None] * kf
-    num = torch.einsum("bhkv,bhk->bhv", c, qf)
-    den = torch.maximum(torch.einsum("bhk,bhk->bh", n, qf).abs(), torch.exp(-m_new))
+    num = collectives.psum(torch.einsum("bhkv,bhk->bhv", c, qf), mesh, "model")
+    den = torch.maximum(collectives.psum(torch.einsum("bhk,bhk->bh", n, qf), mesh,
+                                         "model").abs(), torch.exp(-m_new))
     h = (num / den[..., None]).to(q.dtype)
     return {"c": c, "n": n, "m": m_new}, h
+
+
+def _rms_norm_block(x: torch.Tensor, weight: torch.Tensor, cols: slice,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm(x, w)[..., cols]`` from ``x`` whole and ``weight``, the
+    block ``cols`` of ``w``: the mean square over every channel."""
+    xf = at_least_fp32(x)
+    normed = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (normed[..., cols] * (1.0 + at_least_fp32(weight))).to(x.dtype)
 
 
 def mlstm_block(
@@ -168,38 +219,69 @@ def mlstm_block(
     *,
     state: Optional[Dict[str, torch.Tensor]] = None,
     return_state: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """The recurrent step when a state is given and S == 1; the parallel
     form with no state, no ``return_state`` and S <= 256; else the
-    chunkwise form (chunks of 256), from ``state`` when given."""
+    chunkwise form (chunks of 256), from ``state`` when given. With
+    ``mesh``, on this rank's blocks of the ``ssm_inner`` leaves and of the
+    state's ``Dk`` rows (module doc)."""
     b, s, d = x.shape
+    d_in = PROJ_FACTOR * d
     xn = rms_norm(x, params["norm"])
-    up = torch.einsum("bsd,de->bse", xn, params["w_up"])
-    inner, z = up.chunk(2, dim=-1)
-    d_in = inner.shape[-1]
+    cols = None
+    if mesh is not None and params["w_up"].shape[-1] < 2 * d_in:
+        cols = _block(mesh, d_in)
+        if cols is None:
+            raise NotImplementedError("an mLSTM whose %d channels do not split over model = %d"
+                                      % (d_in, axis_size(mesh, "model")))
+    if cols is None:
+        up = torch.einsum("bsd,de->bse", xn, params["w_up"])
+        inner, z = up.chunk(2, dim=-1)
+        qkv = torch.einsum("bse,ef->bsf", inner, params["w_qkv"])
+        gates = torch.einsum("bse,eg->bsg", inner, params["w_if"])
+    else:
+        up = collectives.gather_to(torch.einsum("bsd,de->bse", collectives.copy_to(
+            xn, mesh, "model"), params["w_up"]), mesh, "model", -1)
+        inner, z = (t[..., cols] for t in up.chunk(2, dim=-1))
+        qkv = collectives.psum(torch.einsum("bse,ef->bsf", inner, params["w_qkv"]), mesh,
+                               "model")
+        gates = collectives.psum(torch.einsum("bse,eg->bsg", inner, params["w_if"]), mesh,
+                                 "model")
     dh = d_in // n_heads
-    qkv = torch.einsum("bse,ef->bsf", inner, params["w_qkv"])
     q, k, v = (t.reshape(b, s, n_heads, dh) for t in qkv.chunk(3, dim=-1))
-    gates = (at_least_fp32(torch.einsum("bse,eg->bsg", inner, params["w_if"]))
-             + at_least_fp32(params["b_if"]))
+    gates = at_least_fp32(gates) + at_least_fp32(params["b_if"])
     log_i, f_raw = gates.chunk(2, dim=-1)  # [B,S,H]
     log_f = F.logsigmoid(f_raw)
 
+    rows = _block(mesh, dh)  # the state's Dk rows this rank holds
     new_state = None
     if state is not None and s == 1:
         new_state, h1 = _mlstm_recurrent_step(
-            state, q[:, 0], k[:, 0], v[:, 0], log_i[:, 0], log_f[:, 0]
+            state, q[:, 0], k[:, 0], v[:, 0], log_i[:, 0], log_f[:, 0], mesh=mesh
         )
         h = h1[:, None]
     elif state is None and not return_state and s <= 256:
         h = _mlstm_parallel(q, k, v, log_i, log_f)
     else:
+        if state is not None and rows is not None:  # inference: the whole state
+            state = dict(state, c=collectives.all_gather(state["c"], mesh, "model", dim=-2),
+                         n=collectives.all_gather(state["n"], mesh, "model", dim=-1))
         h, final_state = _mlstm_chunkwise(q, k, v, log_i, log_f, init_state=state)
         if return_state or state is not None:
             new_state = final_state
+            if rows is not None:
+                new_state = dict(new_state, c=new_state["c"][..., rows, :],
+                                 n=new_state["n"][..., rows])
     h = h.reshape(b, s, d_in)
-    h = rms_norm(h, params["out_norm"]) * silu(z)
-    y = torch.einsum("bse,ed->bsd", h, params["w_down"])
+    if cols is None:
+        h = rms_norm(h, params["out_norm"]) * silu(z)
+        y = torch.einsum("bse,ed->bsd", h, params["w_down"])
+    else:
+        # The cell's output is whole on every rank; each reads its block.
+        h = _rms_norm_block(collectives.copy_to(h, mesh, "model"), params["out_norm"],
+                            cols) * silu(z)
+        y = collectives.psum(torch.einsum("bse,ed->bsd", h, params["w_down"]), mesh, "model")
     return x + y, new_state
 
 
@@ -244,12 +326,20 @@ def slstm_block(
     *,
     state: Optional[Tuple[torch.Tensor, ...]] = None,
     return_state: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, ...]]]:
+    """With ``mesh``, on this rank's gate columns (module doc)."""
     b, s, d = x.shape
     dh = d // n_heads
     xn = rms_norm(x, params["norm"])
+    split = mesh is not None and params["w_gates"].shape[-1] < 4 * d
+    if split:
+        xn = collectives.copy_to(xn, mesh, "model")
     zifo = (at_least_fp32(torch.einsum("bsd,dg->bsg", xn, params["w_gates"]))
-            + at_least_fp32(params["b_gates"])).reshape(b, s, n_heads, 4 * dh)
+            + at_least_fp32(params["b_gates"]))
+    if split:
+        zifo = collectives.gather_from(zifo, mesh, "model", -1)
+    zifo = zifo.reshape(b, s, n_heads, 4 * dh)
     if state is None:
         zeros = torch.zeros((b, n_heads, dh), dtype=zifo.dtype, device=x.device)
         carry = (zeros, zeros, zeros, zeros)
@@ -257,8 +347,8 @@ def slstm_block(
         carry = tuple(state)
     r = at_least_fp32(params["r_gates"])
     hs = []
-    for t in range(s):
-        carry, h_t = _slstm_step(r, carry, zifo[:, t])
+    for zifo_t in zifo.unbind(1):  # one gradient write, not a whole-length one per step
+        carry, h_t = _slstm_step(r, carry, zifo_t)
         hs.append(h_t)
     h = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
     h = rms_norm(h, params["out_norm"])

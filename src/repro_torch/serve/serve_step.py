@@ -14,10 +14,12 @@ batch rows over the DP axes). Each rank runs its rows and heads; the
 logits and next tokens are gathered to the global batch on every rank.
 Where the KV heads cannot shard over ``model`` (MQA, GQA with fewer heads
 than ``model``) and for MLA's compressed cache, the cache splits its
-sequence over ``model`` instead and decode is flash-decode: each rank
-attends to its positions, and the softmax's max and sum and the weighted
-values are combined over ``model`` (``transformer._split_softmax_values``),
-so the cache never moves.
+sequence (a sliding-window ring its slots, ``pos`` whole) over ``model``
+instead and decode is flash-decode: each rank attends to its positions,
+and the softmax's max and sum and the weighted values are combined over
+``model`` (``transformer._split_softmax_values``), so the cache never
+moves. The xLSTM's matrix memories split their ``Dk`` rows over
+``model``.
 """
 
 from __future__ import annotations

@@ -61,8 +61,8 @@ def _granite(out: dict) -> None:
 
 
 def _others(out: dict) -> None:
-    """deepseek-moe-16b train_4k at smoke depth, and an xLSTM cell, on the
-    256-rank mesh."""
+    """deepseek-moe-16b train_4k at smoke depth, an xLSTM cell and hymba's
+    ring-cache decode cell, on the 256-rank mesh."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import dryrun
 
@@ -72,7 +72,8 @@ def _others(out: dict) -> None:
     m = dryrun.run_step(cfg, SHAPES["train_4k"], mesh, device="cpu")
     out["moe"] = dryrun.cell_result(cfg, SHAPES["train_4k"], m, 256)
     out["moe_collectives"] = m["collectives"]
-    out["xlstm"] = dryrun.lower_cell("xlstm-350m", "train_4k", multi_pod=False, device="cpu")
+    out["xlstm"] = dryrun.lower_cell("xlstm-350m", "decode_32k", multi_pod=False, device="cpu")
+    out["hymba"] = dryrun.lower_cell("hymba-1.5b", "decode_32k", multi_pod=False, device="cpu")
 
 
 def _multi(out: dict) -> None:

@@ -27,7 +27,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 OPT = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
-STEPS = {"granite-3-2b": 3, "deepseek-moe-16b": 4, "deepseek-v2-236b": 3, "hymba-1.5b": 3}
+STEPS = {"granite-3-2b": 3, "deepseek-moe-16b": 4, "deepseek-v2-236b": 3, "hymba-1.5b": 3,
+         "xlstm-350m": 3}
 SERVE_PROMPT, SERVE_NEW = 16, 8
 
 
@@ -116,7 +117,7 @@ def train_case(name: str):
     ``deepseek_bf16``, ``granite_compressed`` (fp32)..."""
     arch, kind = name.rsplit("_", 1)
     arch = {"granite": "granite-3-2b", "deepseek": "deepseek-moe-16b",
-            "deepseekv2": "deepseek-v2-236b", "hymba": "hymba-1.5b"}[arch]
+            "deepseekv2": "deepseek-v2-236b", "hymba": "hymba-1.5b", "xlstm": "xlstm-350m"}[arch]
     return arch, "fp32" if kind == "compressed" else kind, kind == "compressed"
 
 
@@ -124,27 +125,30 @@ def train_case(name: str):
 # the port's side, on gloo ranks
 # ---------------------------------------------------------------------------
 
-def _torch_cfg(arch, dtype):
+def _torch_cfg(arch, dtype, **replaced):
     import torch
 
     from repro_torch.configs import all_configs, smoke_config
 
-    cfg = smoke_config(all_configs()[arch])
-    return dataclasses.replace(cfg, dtype=torch.float32) if dtype == "fp32" else cfg
+    cfg = dataclasses.replace(smoke_config(all_configs()[arch]), **replaced)
+    wide = {"fp32": torch.float32, "fp64": torch.float64}.get(dtype)
+    return dataclasses.replace(cfg, dtype=wide) if wide else cfg
 
 
-def _torch_model(arch, dtype, seed=3, soften=None):
+def _torch_model(arch, dtype, seed=3, soften=None, **replaced):
+    """``arch`` at smoke width (fields of the config ``replaced``), its
+    parameters from ``numpy_params``."""
     import torch
 
     from repro_torch.models.convert import params_from_jax
     from repro_torch.models.model import model_defs
 
-    cfg = _torch_cfg(arch, dtype)
+    cfg = _torch_cfg(arch, dtype, **replaced)
     tree = numpy_params(model_defs(cfg), seed, soften=dtype == "fp32" if soften is None
                         else soften)
     model = params_from_jax(cfg, tree, device="cpu")
-    if dtype == "fp32":
-        model.to(torch.float32)
+    if dtype in ("fp32", "fp64"):
+        model.to(cfg.dtype)
     model.cfg = cfg
     return model
 
@@ -200,12 +204,19 @@ def torch_case(name: str):
         return {"out": out.float().numpy(), "local_rows": np.int64(local.shape[0])}
     if name.startswith("moe"):
         return _torch_moe(float(name.split("_")[1]))
-    if name.startswith(("granite", "deepseek", "hymba")):
+    if name.startswith(("granite", "deepseek", "hymba", "xlstm")):
         return _torch_train(name)
     if name == "grads":
-        return _torch_grads()
+        return {arch: _grads_on(arch, shape) for arch, shape in GRADS.items()}
+    if name == "tp_grads":
+        return _torch_tp_grads()
     if name == "serve":
-        return _torch_serve()
+        return {k: v for arch, dtype in SERVE for k, v in _serve_on(
+            arch, dtype, (2, 2), SERVE_PROMPT, SERVE_NEW).items()}
+    if name == "tp_serve":
+        return {k: v for tag, arch, shape, replaced in TP_SERVE for dtype in ("fp32", "fp64")
+                for k, v in _serve_on(arch, dtype, shape, TP_PROMPT, TP_NEW,
+                                      tag="%s_%s" % (tag, dtype), **replaced).items()}
     if name == "restore":
         return _torch_restore()
     if name == "remat_a2a":
@@ -309,15 +320,30 @@ SERVE = [("granite-3-2b", "fp32"), ("granite-3-2b", "bf16"), ("gemma-2b", "fp32"
 
 GRADS = {"granite-3-2b": (2, 2), "gemma-2b": (2, 2), "qwen2.5-32b": (2, 2),
          "internlm2-20b": (2, 2), "hymba-1.5b": (2, 2), "internvl2-76b": (2, 2),
-         "whisper-tiny": (2, 2), "xlstm-350m": (4, 1)}
+         "whisper-tiny": (2, 2), "xlstm-350m": (2, 2)}
+#: Tensor parallelism of the xLSTM forms, and granite's and qwen2.5's
+#: (with K/V biases) KV heads, which do not divide model = 4: (arch, mesh
+#: shape).
+TP_GRADS = [("xlstm-350m", (2, 2)), ("xlstm-350m", (1, 4)), ("granite-3-2b", (1, 4)),
+            ("qwen2.5-32b", (1, 4))]
+#: Decode through the serve steps: (tag, arch, mesh shape, config fields
+#: replaced). hymba's 64-slot ring splits over model; at smoke width its 4
+#: heads split and its 2 KV heads stay whole, with 5 and 5 both stay whole.
+TP_SERVE = [("xlstm-350m", "xlstm-350m", (2, 2), {}),
+            ("hymba-1.5b", "hymba-1.5b", (1, 4), {}),
+            ("hymba-1.5b-5heads", "hymba-1.5b", (1, 4),
+             dict(n_heads=5, n_kv_heads=5, head_dim=32))]
+TP_PROMPT, TP_NEW = 48, 40  # max_len 96: the ring wraps past 64
 
 
-def _torch_grads():
+def _grads_on(arch, shape, products=None):
     """The loss and every parameter's gradient of one fp32 batch (attention
-    softened) on a (data, model) mesh, summed over data and gathered over
-    model, against one device: the mesh's forward and backward collectives
-    for the families without experts (whose aux loss and capacity depend on
-    the mesh). The xLSTM runs data-parallel (model = 1)."""
+    softened) on a (data, model) mesh of ``shape``, summed over data and
+    gathered over model, against one device: the mesh's forward and
+    backward collectives for the families without experts (whose aux loss
+    and capacity depend on the mesh). ``products``: a dict that receives
+    the shapes of the products with layer 0's ``wk`` and ``wv`` on the
+    mesh."""
     import torch
 
     from repro_torch.distributed import default_rules
@@ -327,97 +353,142 @@ def _torch_grads():
     from repro_torch.models.transformer import ModelContext
     from repro_torch.train.train_step import local_rows, param_shardings, place_model
 
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    rules = default_rules(mesh)
+    batch = {"tokens": torch.from_numpy(batches(512, 1)[0]["tokens"]).long()}
+    runs = []
+    for on_mesh in (False, True):
+        model = _torch_model(arch, "fp32")
+        cfg = model.cfg
+        extra = {"audio": ("frames", cfg.encoder_frames),
+                 "vlm": ("patches", cfg.vision_tokens)}.get(cfg.family)
+        if extra:
+            batch[extra[0]] = torch.from_numpy(np.random.default_rng(6).standard_normal(
+                (4, extra[1], cfg.d_model), np.float32))
+        model.requires_grad_(True)
+        if not on_mesh:
+            loss, _ = model.loss(batch)
+            runs.append((float(loss), [g.numpy() for g in torch.autograd.grad(
+                loss, tree_tensors(model.param_tree()))]))
+            continue
+        shardings = param_shardings(model, mesh, rules)
+        place_model(model, shardings)
+        ctx = ModelContext(mesh, rules)
+        if products is None:
+            loss, _ = model.loss(local_rows(mesh, ("data",), batch), ctx)
+        else:
+            attn = model["layers"][0]["attn"]
+            with _product_shapes({"wk": attn["wk"], "wv": attn["wv"]}) as seen:
+                loss, _ = model.loss(local_rows(mesh, ("data",), batch), ctx)
+            products.update({k: np.array(v) for k, v in seen.shapes.items()})
+        grads = iter(torch.autograd.grad(loss, tree_tensors(model.param_tree())))
+        full = []
+        for path, _ in leaf_paths(model.defs):
+            sh = shardings
+            for k in path:
+                sh = sh[k]
+            leaf = model.param_leaf(path)
+            layer = sh.layer(stack_depth(leaf))
+            for _ in tree_tensors({"x": leaf}):
+                g = next(grads).clone()
+                if "data" not in spec_axes(sh.spec):
+                    torch.distributed.all_reduce(g, group=mesh.get_group("data"))
+                full.append(layer.gather(g).numpy())
+        runs.append((float(loss), full))
+    return runs + [[path[-1] for path, d in leaf_paths(model.defs)
+                    for _ in range(int(np.prod(d.shape[:stack_depth(
+                        model.param_leaf(path))])))]]
+
+
+def _product_shapes(weights):
+    """A dispatch mode that records the output shape of each matrix
+    product one of whose operands shares a storage with ``weights[name]``
+    (a view of it: a slice, or the reshape ``einsum`` makes), by name."""
+    import torch
+    from torch.multiprocessing.reductions import StorageWeakRef
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    dots = {aten.mm.default, aten.bmm.default, aten.addmm.default, aten.baddbmm.default}
+    keys = {StorageWeakRef(w.untyped_storage()): name for name, w in weights.items()}
+
+    class Mode(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in dots:
+                for a in args:
+                    name = keys.get(StorageWeakRef(a.untyped_storage())) \
+                        if isinstance(a, torch.Tensor) else None
+                    if name is not None:
+                        self.shapes.setdefault(name, []).append(tuple(out.shape))
+            return out
+
+    return Mode()
+
+
+def _torch_tp_grads():
     out = {}
-    for arch, shape in GRADS.items():
-        mesh = make_mesh(shape, ("data", "model"), device="cpu")
-        rules = default_rules(mesh)
-        batch = {"tokens": torch.from_numpy(batches(512, 1)[0]["tokens"]).long()}
-        runs = []
-        for on_mesh in (False, True):
-            model = _torch_model(arch, "fp32")
-            cfg = model.cfg
-            extra = {"audio": ("frames", cfg.encoder_frames),
-                     "vlm": ("patches", cfg.vision_tokens)}.get(cfg.family)
-            if extra:
-                batch[extra[0]] = torch.from_numpy(np.random.default_rng(6).standard_normal(
-                    (4, extra[1], cfg.d_model), np.float32))
-            model.requires_grad_(True)
-            if not on_mesh:
-                loss, _ = model.loss(batch)
-                runs.append((float(loss), [g.numpy() for g in torch.autograd.grad(
-                    loss, tree_tensors(model.param_tree()))]))
-                continue
-            shardings = param_shardings(model, mesh, rules)
-            place_model(model, shardings)
-            loss, _ = model.loss(local_rows(mesh, ("data",), batch), ModelContext(mesh, rules))
-            grads = iter(torch.autograd.grad(loss, tree_tensors(model.param_tree())))
-            full = []
-            for path, _ in leaf_paths(model.defs):
-                sh = shardings
-                for k in path:
-                    sh = sh[k]
-                leaf = model.param_leaf(path)
-                layer = sh.layer(stack_depth(leaf))
-                for _ in tree_tensors({"x": leaf}):
-                    g = next(grads).clone()
-                    if "data" not in spec_axes(sh.spec):
-                        torch.distributed.all_reduce(g, group=mesh.get_group("data"))
-                    full.append(layer.gather(g).numpy())
-            runs.append((float(loss), full))
-        out[arch] = runs + [[path[-1] for path, d in leaf_paths(model.defs)
-                             for _ in range(int(np.prod(d.shape[:stack_depth(
-                                 model.param_leaf(path))])))]]
+    for arch, shape in TP_GRADS:
+        products = {} if arch == "granite-3-2b" else None
+        key = "%s@%dx%d" % ((arch,) + shape)
+        out[key] = _grads_on(arch, shape, products)
+        if products is not None:
+            out[key + "/products"] = products
     return out
 
 
-def _torch_serve():
-    """Greedy decode on (2, 2) and on one device from the same weights:
-    granite (KV heads over model), gemma (MQA: the cache splits its
-    sequence over model), deepseek-v2 (MLA: its compressed cache splits
-    the same way), deepseek-moe (EP all-to-alls in decode), hymba (the
-    SSM state over model) and whisper (the cross K/V cache whole)."""
+def _serve_on(arch, dtype, shape, prompt, new, tag=None, **replaced):
+    """Greedy decode on a (data, model) mesh of ``shape`` and on one device
+    from the same weights (attention softened): ``prompt`` tokens, then
+    ``new`` tokens; the cache blocks each rank holds at the end."""
     import torch
 
     from repro_torch.distributed import default_rules
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.serve import make_serve_steps, prefill_to_decode_caches
 
-    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
-    out = {}
-    for arch, dtype in SERVE:
-        runs = []
-        for on_mesh in (False, True):
-            model = _torch_model(arch, dtype, seed=21, soften=True)
-            cfg = model.cfg
-            B, max_len = 4, SERVE_PROMPT + SERVE_NEW
-            prompts = torch.from_numpy(np.random.default_rng(22).integers(
-                0, cfg.vocab_size, (B, SERVE_PROMPT))).long()
-            if on_mesh:
-                prefill, decode, _, shardings = make_serve_steps(
-                    model, mesh, default_rules(mesh), batch=B, max_len=max_len)
-                params = model.param_tree()
-                pre = lambda b: prefill(params, b)  # noqa: E731
-                dec = lambda t, c, i: decode(params, t, c, i)  # noqa: E731
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    tag = tag or "%s_%s" % (arch, dtype)
+    out, runs = {}, []
+    for on_mesh in (False, True):
+        model = _torch_model(arch, dtype, seed=21, soften=True, **replaced)
+        cfg = model.cfg
+        B, max_len = 4, prompt + new
+        prompts = torch.from_numpy(np.random.default_rng(22).integers(
+            0, cfg.vocab_size, (B, prompt))).long()
+        if on_mesh:
+            prefill, decode, _, shardings = make_serve_steps(
+                model, mesh, default_rules(mesh), batch=B, max_len=max_len)
+            params = model.param_tree()
+            pre = lambda b: prefill(params, b)  # noqa: E731
+            dec = lambda t, c, i: decode(params, t, c, i)  # noqa: E731
+        else:
+            pre, dec, _ = make_serve_steps(model, batch=B, max_len=max_len)
+        inputs = {"tokens": prompts}
+        if cfg.family == "audio":
+            inputs["frames"] = torch.from_numpy(np.random.default_rng(23).standard_normal(
+                (B, cfg.encoder_frames, cfg.d_model), np.float32))
+        logits, pc = pre(inputs)
+        caches = prefill_to_decode_caches(cfg, model, pc, B, max_len, prompt)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        wide = torch.float64 if cfg.dtype == torch.float64 else torch.float32
+        toks, steps = [tok], [logits[:, 0].to(wide)]
+        for t in range(new - 1):
+            tok, lg, caches = dec(tok, caches, prompt + t)
+            toks.append(tok)
+            steps.append(lg[:, 0].to(wide))
+        runs.append((torch.cat(toks, 1).numpy(), torch.stack(steps, 1).numpy()))
+        if on_mesh:
+            if cfg.family == "ssm":
+                held = caches["m"]
             else:
-                pre, dec, _ = make_serve_steps(model, batch=B, max_len=max_len)
-            inputs = {"tokens": prompts}
-            if cfg.family == "audio":
-                inputs["frames"] = torch.from_numpy(np.random.default_rng(23).standard_normal(
-                    (B, cfg.encoder_frames, cfg.d_model), np.float32))
-            logits, pc = pre(inputs)
-            caches = prefill_to_decode_caches(cfg, model, pc, B, max_len, SERVE_PROMPT)
-            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
-            toks, steps = [tok], [logits[:, 0].float()]
-            for t in range(SERVE_NEW - 1):
-                tok, lg, caches = dec(tok, caches, SERVE_PROMPT + t)
-                toks.append(tok)
-                steps.append(lg[:, 0].float())
-            runs.append((torch.cat(toks, 1).numpy(), torch.stack(steps, 1).numpy()))
-            if on_mesh:
-                attn = caches["attn"] if "attn" in caches else caches[next(iter(caches))]["attn"]
-                out["%s_%s_cache_block" % (arch, dtype)] = {
-                    k: np.array(v.shape) for k, v in attn.items()}
-        out["%s_%s" % (arch, dtype)] = runs
+                held = caches["attn"] if "attn" in caches else caches[next(iter(caches))]["attn"]
+            out[tag + "_cache_block"] = {k: np.array(v.shape) for k, v in held.items()}
+    out[tag] = runs
     return out
 
 
@@ -541,7 +612,7 @@ def jax_case(name: str, out_dir: Path):
         (_, (y, aux)), dx = jax.jit(jax.value_and_grad(f, argnums=1, has_aux=True))(
             params, jnp.asarray(x))
         return {"y": np.asarray(y), "aux": np.asarray(aux), "dx": np.asarray(dx)}
-    if name.startswith(("granite", "deepseek", "hymba")):
+    if name.startswith(("granite", "deepseek", "hymba", "xlstm")):
         return _jax_train(name, out_dir)
     raise ValueError(name)
 

@@ -9,21 +9,23 @@ process holds one fake group, one for the 256-rank mesh and one for the
     argument bytes equal rank 0's blocks from ``param_shardings`` and
     ``opt_state_shardings`` plus its batch rows; the FLOPs equal this
     file's count from the config (the unembedding whole on each chip: its
-    49 155 rows do not divide ``model``; the K/V projections whole too:
-    8 KV heads do not divide 16; ``dots`` remat runs attention's two
-    products again in the backward); ZeRO-1's reduce-scatter and
+    49 155 rows do not divide ``model``; 8 KV heads do not divide 16, so
+    rank 0 projects only the one KV head its 2 query heads read; ``dots``
+    remat runs attention's two products again in the backward); ZeRO-1's reduce-scatter and
     all-gather over ``data`` are counted; the extrapolation from 1 and 2
     layers equals the direct count at 4 in FLOPs and wire bytes (bytes
     within 1e-4: which dim ZeRO-1 splits, and so which copies a step
     makes, depends on the depth; measured 2.3e-5);
   * deepseek-moe-16b train_4k at smoke depth runs, its EP all-to-alls
-    counted; an xLSTM cell reads ``unsupported``;
+    counted; an xLSTM cell runs on (16, 16) (its ``ssm_inner`` leaves over
+    ``model``), and so does hymba-1.5b decode_32k (its 1024-slot ring split
+    64 a rank);
   * a cell on (pod=2, data=16, model=16);
   * a cell's keys are the JAX cell's, with ``run_s`` for ``lower_s`` and
     ``compile_s``, and ``fits_h100``;
-  * the committed ``results/dryrun_torch.json``: 80 cells, per mesh 26 ok,
-    6 unsupported, 8 skipped (the reasons ``repro.configs.shape_applicable``
-    gives, cell for cell), 0 errors.
+  * the committed ``results/dryrun_torch.json``: 80 cells, per mesh 32 ok,
+    8 skipped (the reasons ``repro.configs.shape_applicable`` gives, cell
+    for cell), 0 unsupported, 0 errors.
 """
 
 import json
@@ -70,13 +72,19 @@ def _dense_train_flops(cfg, shape, data=16, model=16):
     """FLOPs per chip of a dense GQA decoder's train step, from its config:
     projections forward and backward (3x), attention's two products
     forward, again in the ``dots`` recompute, and backward (4x), the
-    unembedding (3x). Heads split over ``model``; KV heads and vocabulary
-    only where they divide it. Chunked causal attention: query block i
+    unembedding (3x). Heads split over ``model``; vocabulary only where it
+    divides it; KV heads where they divide it, else the KV heads rank 0's
+    query heads read (it projects only those). Chunked causal attention: query block i
     reads the first (i + 1) * chunk keys."""
     t = shape.global_batch // data * shape.seq_len  # rank 0's tokens
     d, dh = cfg.d_model, cfg.resolved_head_dim
     heads = cfg.n_heads // model
-    kv = cfg.n_kv_heads // model if cfg.n_kv_heads % model == 0 else cfg.n_kv_heads
+    if cfg.n_kv_heads % model == 0:
+        kv = cfg.n_kv_heads // model
+    elif cfg.n_heads % model == 0:  # rank 0's query heads read the first KV heads
+        kv = (heads - 1) // (cfg.n_heads // cfg.n_kv_heads) + 1
+    else:
+        kv = cfg.n_kv_heads
     ff = cfg.d_ff // model
     vocab = cfg.vocab_size // model if cfg.vocab_size % model == 0 else cfg.vocab_size
     proj = 2 * t * d * (2 * heads * dh + 2 * kv * dh + 3 * ff)
@@ -131,10 +139,24 @@ def test_moe_cell_runs_with_its_all_to_alls(runs):
             if c["kind"] == "all-to-all"} == {"data"}
 
 
-def test_xlstm_cell_is_unsupported(runs):
+def test_xlstm_cell_runs(runs):
+    """xlstm-350m decode_32k on (16, 16): its ``ssm_inner`` leaves and its
+    mLSTM states' ``Dk`` rows over ``model``, the contractions over ``Dk``
+    summed there."""
     cell = runs["others"]["xlstm"]
-    assert cell["status"] == "unsupported"
-    assert "xLSTM" in cell["reason"]
+    assert cell["status"] == "ok", cell.get("reason")
+    assert cell["cost"]["flops"] > 0 and cell["fits_h100"]
+    assert cell["collective_counts"]["all-reduce"] > 0
+
+
+def test_hymba_ring_decode_cell_runs(runs):
+    """hymba-1.5b decode_32k on (16, 16): 25 heads and 5 KV heads, neither
+    of which divides 16, so its 1024-slot ring splits 64 a rank and decode
+    is flash-decode over the slots."""
+    cell = runs["others"]["hymba"]
+    assert cell["status"] == "ok", cell.get("reason")
+    assert cell["cost"]["flops"] > 0 and cell["fits_h100"]
+    assert cell["collective_counts"]["all-reduce"] > 0
 
 
 def test_cell_on_the_512_rank_mesh(runs):
@@ -169,8 +191,8 @@ def test_dryrun_results_complete():
         cells = {k: v for k, v in d.items() if k.endswith("|" + mesh)}
         assert len(cells) == 40
         statuses = [c["status"] for c in cells.values()]
-        assert statuses.count("ok") == 26
-        assert statuses.count("unsupported") == 6
+        assert statuses.count("ok") == 32
+        assert statuses.count("unsupported") == 0
         assert statuses.count("skipped") == 8
         assert statuses.count("error") == 0
         for key, c in cells.items():
@@ -184,9 +206,6 @@ def test_dryrun_results_complete():
                 assert {"memory", "cost", "roofline", "fits_h100"} <= set(c), key
                 assert c["roofline"]["dominant"] in ("t_compute", "t_memory", "t_collective")
                 assert c["memory"]["peak_bytes"] >= c["memory"]["argument_size_in_bytes"] > 0
-            if c["status"] == "unsupported":
-                assert arch == "xlstm-350m" or (arch == "hymba-1.5b" and shape in (
-                    "decode_32k", "long_500k")), key
 
 
 def test_roofline_report_reads_the_port_file():

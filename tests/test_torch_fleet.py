@@ -260,8 +260,10 @@ def small(tmp_path_factory):
 @pytest.fixture(scope="module")
 def big(tmp_path_factory):
     """About 1.2 MB of text (190 KB of gzip). The owner is killed after
-    256 KiB of the stream, while its first pass is still far from the end,
-    so loopback socket buffers cannot hold the rest of the stream."""
+    256 KiB of the stream. Its first pass may be done by then, and loopback
+    socket buffers can take the whole stream, so the kill mid-stream test
+    gates the owner: its reads past ``OWNER_GATE`` wait until the test has
+    killed it, and the rest of the stream must come from another peer."""
     rng = np.random.default_rng(0xF1EE7)
     data = make_text(rng, 1_200_000)
     path = tmp_path_factory.mktemp("torch_fleet_big") / "big.gz"
@@ -350,20 +352,44 @@ def test_fleet_unavailable_when_all_peers_dead(fleet, small):
 # failover: kill the owner while the router's client holds its connection
 # ---------------------------------------------------------------------------
 
+#: The owner serves no byte past this offset of the stream until it is dead.
+OWNER_GATE = 512 << 10
+
+
+def _gate(server, at: int) -> threading.Event:
+    """Hold ``server``'s reads that reach past ``at`` until the returned
+    event is set (at most 60 s)."""
+    opened = threading.Event()
+    read_range = server.read_range
+
+    def gated(handle, offset, size):
+        if offset + size > at:
+            opened.wait(60)
+        return read_range(handle, offset, size)
+
+    server.read_range = gated
+    return opened
+
+
 def test_kill_owner_mid_stream_failover_bit_identical(fleet, big):
     path, data = big
     router, gws, _ = fleet()
     c = router.open(path)
     owner = c.peer
+    opened = _gate(_gw_for(gws, owner).server, OWNER_GATE)
     got, n, killed = [], 0, False
     deadline = time.monotonic() + 120
-    for chunk in c.stream(read_size=64 << 10):
-        got.append(chunk)
-        n += len(chunk)
-        if not killed and n >= 256 << 10:
-            killed = True
-            _kill(_gw_for(gws, owner))
-        assert time.monotonic() < deadline
+    try:
+        for chunk in c.stream(read_size=64 << 10):
+            got.append(chunk)
+            n += len(chunk)
+            if not killed and n >= 256 << 10:
+                killed = True
+                _kill(_gw_for(gws, owner))
+                opened.set()
+            assert time.monotonic() < deadline
+    finally:
+        opened.set()
     assert killed
     assert b"".join(got) == data
     assert c.stats["failovers"] >= 1

@@ -29,8 +29,8 @@ losses within 3.3e-3). The ZeRO-1 blocks each rank holds have the shape
 the JAX package's moment specs give.
 
 Then the port against itself: the loss and every gradient of one batch
-on (2, 2) (the xLSTM data-parallel on (4, 1)) against one device for the
-eight families without experts, and greedy decode through
+on (2, 2) (the xLSTM's ``ssm_inner`` leaves over model) against one device
+for the eight families without experts, and greedy decode through
 ``make_serve_steps(model, mesh, rules, ...)`` on (2, 2) against the
 one-device serve steps, attention softened as above: granite-3-2b (KV
 heads over model), gemma-2b (MQA) and deepseek-v2-236b (MLA), whose caches
