@@ -158,6 +158,24 @@ Phases, each fatal on failure:
      kernel that did not launch, a tensor off the card, the engine erred
      or fell back, or a cell not on a fake group of 256 on the card (a
      NotImplementedError ends the worker, which is fatal too);
+ 14. routing and examples: (a) tools/engine_sweep.py's sweep on the card
+     (the reference's kernel_engine_* rows: the host's marker gather and
+     zlib against ops.marker_replace and TorchDecodeEngine at 1-64 chunks),
+     each row printed beside the committed results/engine_sweep_h100.json's
+     and the crossover each gives; (b) a TorchDecodeEngine(crossover="auto")
+     whose crossover must be derive_crossover over the artifact's rows;
+     marker and CRC requests of seeded sizes, one below and one at or
+     above each kind's threshold (both to the host when it is None), each
+     of which must land where the crossover says (by the engine's
+     fallbacks and dispatch shapes) and equal the host path and zlib byte
+     for byte; then a 4 MiB base64 gzip from --seed + 140 read through
+     ParallelGzipReader(resolver=<that engine>) and 64 random preads, all
+     exact, with the engine's routed counts; (c) examples/quickstart_torch.py,
+     serve_gateway_torch.py and serve_fleet_torch.py with --device cuda,
+     each in its own process, started together while (b) runs. Fatal: a
+     sweep row missing, a request landing on the wrong side, a byte that
+     differs, an example's non-zero exit, the engine erred, or a stage-2
+     kernel that did not launch in the phase;
   then one JSON line of kernel results and, last, the {"ok": true, ...}
   line.
 
@@ -2989,6 +3007,216 @@ def log_roofline(r: dict, card: str) -> None:
                                                         json.dumps(r["seconds_by_part"])))
 
 
+# ---------------------------------------------------------------------------
+# phase 14: routing and examples
+# ---------------------------------------------------------------------------
+
+ROUTING_READ_MIB = 4
+ROUTING_PREADS = 64
+ROUTING_SEED = 140  # offset of the read's corpus seed
+EXAMPLES = ("quickstart_torch", "serve_gateway_torch", "serve_fleet_torch")
+
+
+def load_sweep_tool():
+    """``tools/engine_sweep.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("engine_sweep",
+                                                  ROOT / "tools" / "engine_sweep.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def start_examples() -> dict:
+    """The port's three examples on the card, each in a process of its own,
+    all started together: name -> (process, start time)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return {name: (subprocess.Popen([sys.executable, str(ROOT / "examples" / (name + ".py")),
+                                     "--device", "cuda"], env=env, cwd=str(ROOT),
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                   time.perf_counter())
+            for name in EXAMPLES}
+
+
+def finish_examples(procs: dict, timeout: float = 600.0) -> dict:
+    """Waits for every example (killing any still running on an error):
+    name -> exit code, wall seconds and the tail of its output."""
+    out = {}
+    try:
+        for name, (proc, t0) in procs.items():
+            text, _ = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            out[name] = {"rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+                         "tail": text[-2000:]}
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def probe_sizes(threshold, rng) -> list:
+    """Two seeded request sizes: one below the threshold and one at or above
+    it, with where each must land; a None threshold sends both to the host."""
+    if threshold is None:
+        return [(int(rng.integers(1, 8192)), "host"), (int(rng.integers(1 << 20, 2 << 20)), "host")]
+    below = [(int(rng.integers(max(1, threshold // 2), threshold)), "host")] if threshold > 1 else []
+    return below + [(threshold + int(rng.integers(0, 8192)), "card")]
+
+
+def routing_path(seed: int, card: str) -> dict:
+    """Phase 14: the engine sweep on the card beside the committed artifact,
+    an engine routed by that artifact (``crossover="auto"``) held to where
+    each request must land and to the host path and zlib, a read through
+    it, and the port's three examples on the card."""
+    import numpy as np
+
+    from repro_torch.core import ParallelGzipReader
+    from repro_torch.core.markers import replace_markers as host_replace
+    from repro_torch.kernels import crc32 as kc
+    from repro_torch.kernels import marker_replace as mr
+    from repro_torch.kernels import precode_check as pc
+    from repro_torch.kernels.engine import SWEEP_ARTIFACT, TorchDecodeEngine, derive_crossover
+
+    t_phase = time.perf_counter()
+    for kernel in (mr, kc, pc):
+        kernel.reset_launches()
+    out = {}
+
+    # (a) the sweep, with its own defaults (the committed artifact's data).
+    tool = load_sweep_tool()
+    committed = json.loads((ROOT / SWEEP_ARTIFACT).read_text())
+    t0 = time.perf_counter()
+    rows = tool.sweep("cuda", repeats=committed["repeats"])
+    out["sweep"] = {"rows": rows, "crossover": derive_crossover(rows),
+                    "seconds": time.perf_counter() - t0,
+                    "launches": {"marker_replace": mr.launches, "crc32": kc.launches}}
+    out["committed"] = {"card": committed["card"]["nvidia_smi"], "commit": committed["commit"],
+                        "rows": committed["results"], "crossover": committed["crossover"]}
+    want_names = {r["name"] for r in committed["results"]}
+    if {r["name"] for r in rows} != want_names:
+        raise AssertionError("the sweep's rows are not the artifact's: %s"
+                             % sorted({r["name"] for r in rows} ^ want_names))
+
+    # (c) starts here, in the background, while (b) runs.
+    examples = start_examples()
+    try:
+        # (b) routing by the committed artifact.
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(seed + ROUTING_SEED)
+        problems = []
+        with shared_engine_untouched(), TorchDecodeEngine(crossover="auto") as eng:
+            want = derive_crossover(committed["results"])
+            if eng.crossover != want or want != committed["crossover"]:
+                raise AssertionError("crossover='auto' gave %s; the artifact's rows give %s and "
+                                     "it records %s" % (eng.crossover, want,
+                                                        committed["crossover"]))
+            window = rng.integers(0, 256, 32768, dtype=np.uint8).tobytes()
+            probes = []
+            for kind in ("replace", "crc"):
+                for n, where in probe_sizes(eng.crossover[kind], rng):
+                    before = (eng.stats()["fallbacks"][kind],
+                              sum(v for k, v in eng.dispatch_shapes().items() if k[0] == kind))
+                    if kind == "replace":
+                        syms = rng.integers(0, 33024, n, dtype=np.int64).astype(np.uint16)
+                        exact = np.array_equal(eng.replace_markers(syms, window),
+                                               host_replace(syms, window))
+                    else:
+                        blob = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                        exact = eng.crc32(blob) == zlib.crc32(blob)
+                    after = (eng.stats()["fallbacks"][kind],
+                             sum(v for k, v in eng.dispatch_shapes().items() if k[0] == kind))
+                    landed = ("host" if after[0] == before[0] + 1 and after[1] == before[1]
+                              else "card" if after[0] == before[0] and after[1] > before[1]
+                              else "unclear")
+                    probes.append({"kind": kind, "bytes": n, "want": where, "landed": landed,
+                                   "exact": bool(exact)})
+                    if landed != where or not exact:
+                        problems.append("a %s request of %d bytes landed on the %s (want %s), "
+                                        "exact %s" % (kind, n, landed, where, exact))
+            out["probes"] = probes
+            probe_stats = eng.stats()
+
+            corpus = base64_corpus(seed + ROUTING_SEED, ROUTING_READ_MIB << 20)
+            gz = gzip.compress(corpus, 6, mtime=0)
+            t_read = time.perf_counter()
+            workers = min(16, os.cpu_count() or 1)
+            with ParallelGzipReader(gz, chunk_size=1 << 20, parallelization=workers,
+                                    resolver=eng) as r:
+                if r.read() != corpus:
+                    problems.append("the read through the routed engine differs from the corpus")
+                read_s = time.perf_counter() - t_read
+                for _ in range(ROUTING_PREADS):
+                    off = int(rng.integers(0, len(corpus)))
+                    size = int(rng.integers(0, 64 << 10))
+                    if r.pread(off, size) != corpus[off : off + size]:
+                        problems.append("pread(%d, %d) differs" % (off, size))
+            stats = eng.stats()
+            out["read"] = {
+                "corpus_bytes": len(corpus), "gzip_bytes": len(gz), "read_s": read_s,
+                "MBps": len(corpus) / read_s / 1e6, "preads": ROUTING_PREADS,
+                "requests": {k: stats["requests"][k] - probe_stats["requests"][k]
+                             for k in stats["requests"]},
+                "fallbacks": {k: stats["fallbacks"][k] - probe_stats["fallbacks"][k]
+                              for k in stats["fallbacks"]},
+                "errors": stats["errors"],
+            }
+            out["engine"] = {"crossover": eng.crossover, "requests": stats["requests"],
+                             "fallbacks": stats["fallbacks"], "batches": stats["batches"],
+                             "errors": stats["errors"],
+                             "shapes": {"%s:%d:%d" % k: v
+                                        for k, v in eng.dispatch_shapes().items()}}
+            if stats["errors"]:
+                problems.append("the routed engine erred: %s" % stats["errors"])
+        out["routed_s"] = time.perf_counter() - t0
+    finally:
+        # (c) the examples' results.
+        out["examples"] = finish_examples(examples)
+    for name, ex in out["examples"].items():
+        if ex["rc"] != 0:
+            problems.append("examples/%s.py --device cuda exited %s: %s"
+                            % (name, ex["rc"], ex["tail"][-1500:]))
+    out["launches"] = {"marker_replace": mr.launches, "crc32": kc.launches,
+                       "precode_check": pc.launches}
+    if min(out["launches"]["marker_replace"], out["launches"]["crc32"]) < 1:
+        problems.append("a stage-2 kernel never launched in the phase: %s" % out["launches"])
+    out["seconds"] = time.perf_counter() - t_phase
+    if problems:
+        raise AssertionError("routing path: %s; %s" % ("; ".join(problems),
+                                                      json.dumps(out)[:4000]))
+    return out
+
+
+def log_routing(r: dict, card: str) -> None:
+    s = r["sweep"]
+    log("routing path [%s]: (a) engine sweep on the card in %.3f s (launches %s):"
+        % (card, s["seconds"], json.dumps(s["launches"])))
+    committed = {row["name"]: row for row in r["committed"]["rows"]}
+    for row in s["rows"]:
+        old = committed.get(row["name"], {})
+        log("  %-40s %12.3f us  %-44s | committed %12s us  %s"
+            % (row["name"], row["value_us"], row["derived"], old.get("value_us"),
+               old.get("derived")))
+    log("routing path [%s]: (a) crossover bytes from this run %s; committed (%s, %s) %s"
+        % (card, json.dumps(s["crossover"]), r["committed"]["card"], r["committed"]["commit"],
+           json.dumps(r["committed"]["crossover"])))
+    for p in r["probes"]:
+        log("routing path [%s]: (b) %s request of %d bytes: want %s, landed %s, exact %s"
+            % (card, p["kind"], p["bytes"], p["want"], p["landed"], p["exact"]))
+    rd = r["read"]
+    log("routing path [%s]: (b) %d-byte base64 corpus (gzip %d) read exact through "
+        "crossover='auto' in %.3f s (%.3f MB/s), %d preads exact; the read's requests %s, "
+        "fallbacks %s; engine %s"
+        % (card, rd["corpus_bytes"], rd["gzip_bytes"], rd["read_s"], rd["MBps"], rd["preads"],
+           json.dumps(rd["requests"]), json.dumps(rd["fallbacks"]), json.dumps(r["engine"])))
+    for name, ex in r["examples"].items():
+        log("routing path [%s]: (c) examples/%s.py --device cuda: exit %d, wall %.3f s"
+            % (card, name, ex["rc"], ex["wall_s"]))
+    log("routing path [%s]: launches %s; (b) %.3f s; seconds %.3f"
+        % (card, json.dumps(r["launches"]), r["routed_s"], r["seconds"]))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
@@ -3123,6 +3351,9 @@ def main() -> int:
 
     dist.destroy_process_group()  # the NCCL group phases 11-13 started
 
+    routing = routing_path(args.seed, card)
+    log_routing(routing, card)
+
     sources = {
         "marker_replace": ("src/repro_torch/kernels/csrc/marker_replace.cu",
                            "src/repro/kernels/marker_replace.py:101"),
@@ -3138,7 +3369,8 @@ def main() -> int:
     by_path = {"main": path["launches"], "ops": ops["launches"], "service": service["launches"],
                "fleet": fleet["launches"], "pipeline": pipeline["launches"],
                "serve": serve["launches"], "train": train["launches"],
-               "mesh": mesh["launches"], "roofline": roof["launches"]}
+               "mesh": mesh["launches"], "roofline": roof["launches"],
+               "routing": routing["launches"]}
     checked = rows + at_path + precode_rows
     kernels = []
     for row in at_path:
@@ -3158,7 +3390,7 @@ def main() -> int:
             "at_path": at_path, "main_path": path, "precode_rows": precode_rows, "ops_path": ops,
             "service_path": service, "fleet_path": fleet, "pipeline_path": pipeline,
             "serve_path": serve, "train_path": train, "mesh_path": mesh,
-            "roofline_path": roof, "kernels": kernels,
+            "roofline_path": roof, "routing_path": routing, "kernels": kernels,
         }, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,11 +21,17 @@ What differs on the card:
     there is no CUDA device or the kernels do not build; the engine never
     degrades to the CPU on its own. ``device="cpu"`` runs the kernels' plain
     PyTorch versions (``stats()["interpret"]`` is then True).
-  * **Routing.** No crossover artifact exists for the card yet, so with
-    ``crossover=None`` every non-degenerate request goes to the kernels
-    (``force_device``). An explicit crossover dict routes by size as in the
-    reference, and ``derive_crossover`` is kept for the day an H100 sweep
-    exists.
+  * **Routing.** The reference defaults to ``crossover="auto"``, which
+    derives the crossover from its committed CPU sweep and degrades to the
+    CPU for everything when that artifact is missing. Here the default is
+    ``crossover=None``: every non-degenerate request goes to the kernels
+    (``force_device``). ``crossover="auto"`` reads the card's committed
+    sweep, ``results/engine_sweep_h100.json`` (``tools/engine_sweep.py``,
+    ``load_crossover``), and raises when it is missing or malformed; a
+    kind whose derived crossover is None (the host wins at every size on
+    that card) takes the host path, counted in ``fallbacks``. A dict
+    routes by size as in the reference, and ``force_device=True`` sends
+    everything to the kernels whatever the crossover.
   * **Staging.** Symbols are staged as uint16 and CRC bytes as uint8 in two
     zeroed pinned host buffers per bucket shape, copied with
     ``non_blocking=True`` on the engine's own stream. Each buffer records a
@@ -37,13 +43,15 @@ What differs on the card:
 
 from __future__ import annotations
 
+import json
+import os
 import re
 import threading
 import time
 import zlib as _zlib
 from collections import Counter, OrderedDict, deque
 from concurrent.futures import Future
-from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -127,6 +135,43 @@ def derive_crossover(rows: Sequence[Dict[str, Any]]) -> Dict[str, Optional[int]]
     }
 
 
+#: The card's committed engine sweep, relative to the repository root.
+SWEEP_ARTIFACT = os.path.join("results", "engine_sweep_h100.json")
+#: The rows ``derive_crossover`` reads: (name, whether its MB/s is read).
+_CROSSOVER_ROWS = (("kernel_engine_cpu_replace", True), ("kernel_engine_batched_b16", True),
+                   ("kernel_engine_batched_b1", False), ("kernel_engine_cpu_crc", True),
+                   ("kernel_engine_crc_batched_b8", True),
+                   ("kernel_engine_crc_batched_b1", False))
+
+
+def load_crossover(root: Optional[str] = None) -> Dict[str, Optional[int]]:
+    """``derive_crossover`` over the rows of ``<root>/results/engine_sweep_h100.json``
+    (the repository root by default).
+
+    Unlike the reference's, a missing or malformed artifact raises: a
+    routing policy that silently became "everything on the host" would
+    hide the card. Malformed means not JSON, no ``results`` list, or a row
+    the derivation reads that is absent or has no time or no MB/s.
+    """
+    if root is None:
+        root = os.path.dirname(
+            os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        )
+    path = os.path.join(root, SWEEP_ARTIFACT)
+    with open(path) as f:
+        payload = json.load(f)
+    rows = payload.get("results") if isinstance(payload, dict) else None
+    if not isinstance(rows, list):
+        raise ValueError("%s: no list of sweep rows under 'results'" % path)
+    by_name = {r.get("name"): r for r in rows if isinstance(r, dict)}
+    for name, bandwidth in _CROSSOVER_ROWS:
+        row = by_name.get(name)
+        if row is None or not isinstance(row.get("value_us"), (int, float)) or (
+                bandwidth and not _MBPS_RE.search(str(row.get("derived", "")))):
+            raise ValueError("%s: row %s is missing or malformed" % (path, name))
+    return derive_crossover(rows)
+
+
 class _Request:
     __slots__ = ("kind", "symbols", "window", "data", "tiles", "nbytes", "future")
 
@@ -175,7 +220,9 @@ class TorchDecodeEngine:
         max_batch_crc_bytes: int = 4 << 20,
         max_crc_requests: int = 16,
         max_delay_s: float = 0.002,
-        crossover: Optional[Dict[str, Optional[int]]] = None,
+        crossover: Union[str, None, Dict[str, Optional[int]]] = None,
+        force_device: bool = False,
+        artifact_root: Optional[str] = None,
     ):
         self.device = _build.resolve_device(device)
         if self.device.type == "cuda":
@@ -190,16 +237,20 @@ class TorchDecodeEngine:
         self.max_crc_requests = max(1, max_crc_requests)
         self.max_delay_s = max(0.0, max_delay_s)
         # Without a crossover every non-degenerate request goes to the kernels.
-        self.force_device = crossover is None
+        self.force_device = force_device or crossover is None
         self.interpret = self._stream is None
         self.available = True
-        if crossover is None:
+        if crossover == "auto":
+            self.crossover = load_crossover(artifact_root)
+        elif crossover is None:
             self.crossover = {"replace": None, "crc": None}
-        else:
+        elif isinstance(crossover, dict):
             self.crossover = {
                 "replace": crossover.get("replace"),
                 "crc": crossover.get("crc"),
             }
+        else:
+            raise ValueError("crossover must be None, 'auto' or a dict, not %r" % (crossover,))
         self._crc_table = make_crc_table().to(self.device)
 
         self._cond = threading.Condition()
@@ -303,8 +354,9 @@ class TorchDecodeEngine:
     # ------------------------------------------------------------------
 
     def replace_markers(self, symbols: np.ndarray, window: Optional[bytes]) -> np.ndarray:
-        """Resolve a marker stream on the device; below an explicit
-        crossover, or after shutdown, on the CPU (counted as a fallback)."""
+        """Resolve a marker stream on the device; below the crossover (or
+        at any size when the kind's crossover is None and the device is not
+        forced), or after shutdown, on the CPU (counted as a fallback)."""
         if symbols.dtype == np.uint8:
             return symbols
         if self._route_device("replace", symbols.shape[0]):
@@ -322,8 +374,8 @@ class TorchDecodeEngine:
         return _cpu_replace_markers(symbols, window)
 
     def crc32(self, data) -> int:
-        """CRC32 on the device; below an explicit crossover, or after
-        shutdown, through zlib (counted as a fallback)."""
+        """CRC32 on the device; where ``replace_markers`` would take the
+        host, through zlib (counted as a fallback)."""
         data = _as_bytes(data)
         if self._route_device("crc", len(data)):
             try:

@@ -10,7 +10,11 @@ operation, and what is left between them is the order of fp32 sums inside
 reductions and matmuls.
 """
 
+import contextlib
+import types
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -26,6 +30,11 @@ from repro_torch.models.convert import to_tensor
 DECODERS = ["granite-3-2b", "gemma-2b", "qwen2.5-32b", "internlm2-20b", "deepseek-moe-16b",
             "deepseek-v2-236b", "hymba-1.5b", "internvl2-76b"]
 LOGIT_TOL = dict.fromkeys(DECODERS, 3e-2) | {"deepseek-v2-236b": 5e-2, "hymba-1.5b": 5e-2}
+
+#: How much further from an fp64 run of the same weights and inputs the
+#: port's bf16 (or a mesh's fp32) leaves may lie than the reference's own,
+#: in mean and in max error (``no_worse``).
+NO_WORSE = 1.25
 
 
 def strict(fn, *args):
@@ -53,3 +62,52 @@ def to_torch(tree):
 
 def close(ref, got, tol: float, msg: str = "") -> None:
     np.testing.assert_allclose(f32(got), f32(ref), rtol=tol, atol=tol, err_msg=msg)
+
+
+class _Wide(types.ModuleType):
+    """``jax.numpy`` with ``float32`` read as ``float64``."""
+
+    def __getattr__(self, name):
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+
+@contextlib.contextmanager
+def jax_fp64():
+    """The JAX package's models in fp64 while traced inside: ``jax_enable_x64``
+    on, and the fp32 that ``repro.models`` takes for statistics, attention
+    scores and the loss (``jnp.float32``) read as fp64, as the port's
+    ``at_least_fp32`` keeps an fp64 model in fp64. Only the module globals
+    are swapped, and put back on exit."""
+    from repro.models import encdec, layers, model
+
+    mods = (encdec, layers, model)
+    saved = [m.jnp for m in mods]
+    with jax.enable_x64(True):
+        try:
+            for m in mods:
+                m.jnp = _Wide("jax.numpy")
+            yield
+        finally:
+            for m, s in zip(mods, saved):
+                m.jnp = s
+
+
+def f64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().double().cpu().numpy()
+    return np.asarray(x).astype(np.float64)
+
+
+def close64(ref, got, tol: float, msg: str = "") -> None:
+    """``close`` without the fp32 cast, for fp64 leaves."""
+    np.testing.assert_allclose(f64(got), f64(ref), rtol=tol, atol=tol, err_msg=msg)
+
+
+def no_worse(exact, ref, got, msg: str = "", factor: float = NO_WORSE) -> None:
+    """``got``'s mean and max error against ``exact`` (an fp64 run of the
+    same weights and inputs) at most ``factor`` times ``ref``'s."""
+    exact = f64(exact)
+    err_ref, err_got = np.abs(f64(ref) - exact), np.abs(f64(got) - exact)
+    assert err_got.shape == err_ref.shape, msg
+    assert err_got.mean() <= factor * err_ref.mean(), (msg, err_got.mean(), err_ref.mean())
+    assert err_got.max() <= factor * err_ref.max(), (msg, err_got.max(), err_ref.max())

@@ -315,7 +315,7 @@ def _torch_train(name: str):
 
 SERVE = [("granite-3-2b", "fp32"), ("granite-3-2b", "bf16"), ("gemma-2b", "fp32"),
          ("deepseek-v2-236b", "fp32"), ("deepseek-moe-16b", "fp32"), ("hymba-1.5b", "fp32"),
-         ("whisper-tiny", "fp32")]
+         ("hymba-1.5b", "fp64"), ("whisper-tiny", "fp32")]
 
 
 GRADS = {"granite-3-2b": (2, 2), "gemma-2b": (2, 2), "qwen2.5-32b": (2, 2),

@@ -131,6 +131,48 @@ def test_engine_matches_host_path(cuda, rng):
     assert tmr.launches >= 5 and tcrc.launches >= 4
 
 
+@pytest.mark.parametrize("kind", ["replace", "crc"])
+def test_engine_routes_by_size_on_the_card(cuda, rng, kind):
+    """A crossover dict on the card: below it the host path (a fallback, no
+    launch), at or above it the kernel; both exact."""
+    threshold = 3 * 8192 + 5
+    tmr.reset_launches()
+    tcrc.reset_launches()
+    with TorchDecodeEngine(crossover={kind: threshold}, max_delay_s=0.005) as eng:
+        assert not eng.force_device
+        for n, on_card in ((threshold - 1, False), (threshold, True), (threshold + 40_000, True)):
+            before = (tmr.launches, tcrc.launches)
+            if kind == "replace":
+                syms = rng.integers(0, TABLE_SIZE, n, dtype=np.int64).astype(np.uint16)
+                window = rng.integers(0, 256, 32768, dtype=np.uint8).tobytes()
+                np.testing.assert_array_equal(eng.replace_markers(syms, window),
+                                              cpu_replace(syms, window))
+                launched = tmr.launches > before[0]
+            else:
+                blob = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                assert eng.crc32(blob) == zlib.crc32(blob)
+                launched = tcrc.launches > before[1]
+            assert launched == on_card, n
+        stats = eng.stats()
+        assert stats["fallbacks"][kind] == 1 and stats["requests"][kind] == 3
+        assert stats["errors"] == 0
+        other = "crc" if kind == "replace" else "replace"
+        assert stats["requests"][other] == 0
+
+
+def test_engine_auto_reads_the_committed_sweep(cuda):
+    """crossover="auto" on the card is derive_crossover over the committed
+    sweep's rows."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.kernels.engine import SWEEP_ARTIFACT, derive_crossover
+
+    rows = json.loads((Path(__file__).resolve().parents[1] / SWEEP_ARTIFACT).read_text())["results"]
+    with TorchDecodeEngine(crossover="auto") as eng:
+        assert eng.crossover == derive_crossover(rows)
+
+
 def test_reader_on_the_default_engine(cuda, rng):
     import base64
 

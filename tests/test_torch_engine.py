@@ -7,8 +7,11 @@ against the reference host path and the reference engine. The engine on
 the card is tested in ``test_torch_cuda.py``.
 """
 
+import json
+import re
 import threading
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,10 +23,15 @@ from repro.kernels.engine import derive_crossover as ref_derive_crossover
 from repro_torch.kernels import crc32 as tcrc
 from repro_torch.kernels import marker_replace as tmr
 from repro_torch.kernels.engine import (
+    SWEEP_ARTIFACT,
     EngineClosedError,
     TorchDecodeEngine,
     derive_crossover,
+    load_crossover,
 )
+from repro_torch.service import ArchiveServer
+
+ROOT = Path(__file__).resolve().parents[1]
 
 TABLE_SIZE = 256 + 32768
 
@@ -246,6 +254,162 @@ def test_derive_crossover_math():
     assert 8_000 < out["replace"] < 20_000
     assert out["crc"] is None
     assert derive_crossover(DERIVE_CASES[1])["replace"] is None
+
+
+# The host wins CRC at every size on these rows: its crossover is None.
+CRC_ON_THE_HOST = [
+    {"name": "kernel_engine_cpu_crc", "value_us": 5.0, "derived": "5000MB/s"},
+    {"name": "kernel_engine_crc_batched_b8", "value_us": 80.0, "derived": "900MB/s"},
+    {"name": "kernel_engine_crc_batched_b1", "value_us": 30.0, "derived": "270MB/s"},
+]
+#: Whole sweeps: every row ``derive_crossover`` reads.
+SWEEPS = [DERIVE_CASES[0] + DERIVE_CASES[2], DERIVE_CASES[1] + DERIVE_CASES[2],
+          DERIVE_CASES[0] + CRC_ON_THE_HOST]
+
+
+def write_sweep(root: Path, payload) -> Path:
+    path = root / SWEEP_ARTIFACT
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(payload if isinstance(payload, str) else json.dumps(payload))
+    return root
+
+
+@pytest.mark.parametrize("case", range(len(SWEEPS)))
+def test_load_crossover_matches_reference(tmp_path, case):
+    """load_crossover over a written sweep is the reference's
+    derive_crossover over the same rows, and "auto" takes it."""
+    rows = SWEEPS[case]
+    root = write_sweep(tmp_path, {"results": rows})
+    want = ref_derive_crossover(rows)
+    assert load_crossover(str(root)) == want
+    with make_engine(crossover="auto", artifact_root=str(root)) as eng:
+        assert eng.crossover == want and not eng.force_device
+        assert eng.stats()["crossover_bytes"] == want
+
+
+def _without(name):
+    return {"results": [r for r in SWEEPS[0] if r["name"] != name]}
+
+
+@pytest.mark.parametrize("payload", [
+    None, "{not json", json.dumps([]), {"results": {}}, {"rows": SWEEPS[0]},
+    _without("kernel_engine_batched_b1"), _without("kernel_engine_cpu_crc"),
+    {"results": [dict(r, derived="n/a") if r["name"] == "kernel_engine_batched_b16" else r
+                 for r in SWEEPS[0]]},
+    {"results": [{k: v for k, v in r.items() if k != "value_us"} for r in SWEEPS[0]]},
+], ids=["missing", "not-json", "a-list", "results-not-a-list", "no-results",
+        "no-batched-b1", "no-cpu-crc", "no-bandwidth", "no-times"])
+def test_auto_raises_without_a_sound_artifact(tmp_path, payload):
+    """Unlike the reference (which degrades to the CPU), a missing or
+    malformed sweep refuses to construct the engine."""
+    if payload is not None:
+        write_sweep(tmp_path, payload)
+    with pytest.raises((OSError, ValueError)):
+        load_crossover(str(tmp_path))
+    with pytest.raises((OSError, ValueError)):
+        make_engine(crossover="auto", artifact_root=str(tmp_path))
+
+
+def test_auto_routes_a_none_kind_to_the_host(tmp_path, rng):
+    """A derived crossover of None sends that kind to the host at every
+    size (counted in fallbacks); the other kind routes by size; every
+    result equals the reference engine's under the same crossover."""
+    root = write_sweep(tmp_path, {"results": SWEEPS[2]})
+    cross = ref_derive_crossover(SWEEPS[2])
+    assert cross["crc"] is None and cross["replace"] is not None
+    ref = DeviceDecodeEngine(crossover=dict(cross), max_delay_s=0.005)
+    window = make_window(rng)
+    small = make_syms(rng, cross["replace"] - 1)
+    big = make_syms(rng, cross["replace"] + 4321)
+    blobs = [make_random(rng, n) for n in (1, 5000, 300_000)]
+    try:
+        with make_engine(crossover="auto", artifact_root=str(root)) as eng:
+            for syms in (small, big):
+                np.testing.assert_array_equal(eng.replace_markers(syms, window),
+                                              ref.replace_markers(syms, window))
+            for blob in blobs:
+                assert eng.crc32(blob) == ref.crc32(blob) == (zlib.crc32(blob) & 0xFFFFFFFF)
+            stats = eng.stats()
+            assert stats["requests"] == {"replace": 2, "crc": 3}
+            assert stats["fallbacks"] == {"replace": 1, "crc": 3}
+            assert sorted(k[0] for k in eng.dispatch_shapes()) == ["replace"]
+    finally:
+        ref.shutdown()
+
+
+def test_force_device_overrides_the_crossover(tmp_path, rng):
+    root = write_sweep(tmp_path, {"results": SWEEPS[2]})
+    with make_engine(crossover="auto", artifact_root=str(root), force_device=True) as eng:
+        blob, syms, window = make_random(rng, 100), make_syms(rng, 10), make_window(rng)
+        assert eng.crc32(blob) == (zlib.crc32(blob) & 0xFFFFFFFF)
+        np.testing.assert_array_equal(eng.replace_markers(syms, window), cpu_replace(syms, window))
+        assert eng.stats()["fallbacks"] == {"replace": 0, "crc": 0}
+        assert sorted(k[0] for k in eng.dispatch_shapes()) == ["crc", "replace"]
+
+
+def test_archive_server_forwards_auto(tmp_path):
+    root = write_sweep(tmp_path, {"results": SWEEPS[0]})
+    with ArchiveServer(device="cpu", max_workers=1, engine_options={
+            "crossover": "auto", "artifact_root": str(root)}) as srv:
+        assert srv.device_engine.crossover == ref_derive_crossover(SWEEPS[0])
+    with pytest.raises((OSError, ValueError)):
+        ArchiveServer(device="cpu", max_workers=1, engine_options={
+            "crossover": "auto", "artifact_root": str(tmp_path / "nowhere")})
+
+
+def test_sweep_tool_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """tools/engine_sweep.py at its smallest on the host: the reference's
+    rows in its format, a file load_crossover reads, and the crossover
+    those rows give."""
+    import importlib.util
+    import sys
+
+    spec = importlib.util.spec_from_file_location("engine_sweep",
+                                                  ROOT / "tools" / "engine_sweep.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = tmp_path / SWEEP_ARTIFACT
+    monkeypatch.setattr(sys, "argv", ["engine_sweep.py", "--device", "cpu", "--repeats", "1",
+                                      "--crc-payload", "1024", "--out", str(out),
+                                      "--commit", "abc"])
+    assert tool.main() == 0
+    payload = json.loads(out.read_text())
+    names = [r["name"] for r in payload["results"]]
+    assert names == ["kernel_engine_cpu_replace"] + [
+        "kernel_engine_%s_b%d" % (k, b) for b in (1, 4, 16, 64) for k in ("per_chunk", "batched")
+    ] + ["kernel_engine_cpu_crc", "kernel_engine_crc_batched_b8", "kernel_engine_crc_batched_b1",
+         "kernel_engine_cpu_crc_8KiB", "kernel_engine_crc_batched_b8_8KiB",
+         "kernel_engine_crc_batched_b1_1KiB", "kernel_engine_interactive_singleton"]
+    for row in payload["results"][:-1]:
+        assert re.fullmatch(r"[0-9.]+MB/s(;[0-9.]+x_vs_per_chunk;[0-9.]+x_vs_single)?",
+                            row["derived"]), row
+    assert re.fullmatch(r"fallbacks=\d+;batches=\d+", payload["results"][-1]["derived"])
+    assert payload["commit"] == "abc" and payload["card"]["name"] == "cpu"
+    assert payload["crossover"] == load_crossover(str(tmp_path)) == \
+        ref_derive_crossover(payload["results"])
+    assert '{"crossover": ' in capsys.readouterr().out
+
+
+def test_committed_h100_sweep():
+    """results/engine_sweep_h100.json: an H100 run (the card's name and
+    power limit as nvidia-smi gives them), every row the reference's sweep
+    emits, and the crossover it records is load_crossover's."""
+    payload = json.loads((ROOT / SWEEP_ARTIFACT).read_text())
+    assert "H100" in payload["card"]["name"] and payload["card"]["power_limit"].endswith("W")
+    names = {r["name"] for r in payload["results"]}
+    want = {"kernel_engine_cpu_replace", "kernel_engine_cpu_crc",
+            "kernel_engine_interactive_singleton", "kernel_engine_crc_batched_b1",
+            "kernel_engine_crc_batched_b8"}
+    want |= {"kernel_engine_%s_b%d" % (k, b) for k in ("per_chunk", "batched")
+             for b in (1, 4, 16, 64)}
+    assert want <= names
+    for row in payload["results"]:
+        assert sorted(row) == ["derived", "name", "value_us"], row
+    cross = load_crossover()
+    assert cross == ref_derive_crossover(payload["results"]) == payload["crossover"]
+    assert sorted(cross) == ["crc", "replace"]
+    assert all(v is None or isinstance(v, int) for v in cross.values())
+    assert payload["commit"] and payload["tool"] == "tools/engine_sweep.py"
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,23 @@ Tolerances (``rtol = atol``): 1e-2 for one block's bf16 output, 3e-2 on a
 model's bf16 logits and caches (the JAX tests' own), 1e-2 relative on the
 loss; fp32 states and gates of a form 1e-4, fp32 forms against each other
 1e-4 (the JAX test holds bf16 forms to 3e-2 and 4e-2).
+
+Whisper's decoder stack and its caches are held another way. Both packages
+round to bf16 after the same operations, but a bf16 product's fp32 sum is
+taken in the library's order: on some hosts one output of the first
+self-attention's ``wq`` product rounds to the other side of a tie
+(6.1875 against 6.21875, exactly 6.2031246), and near-hard attention
+carries that to 0.137 in the logits (1.46 % of them past 3e-2). So each
+leaf is computed by both packages in fp64 from the same weights and
+inputs (``_jax_port.jax_fp64``), which must agree within 1e-9 (the same
+arithmetic; measured 1.4e-12), and each bf16 leaf's mean and max error
+against the JAX package's fp64 leaf may be at most ``NO_WORSE`` (1.25)
+times the JAX package's own bf16 leaf's (measured 1.000-1.024 on the
+decoder stack's leaves). ``tools/fp_walk.py`` prints the walk and these
+figures.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -22,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from _jax_port import close, f32, jax_ctx, strict, to_torch
+from _jax_port import close, close64, f32, f64, jax_ctx, jax_fp64, no_worse, strict, to_torch
 from repro.configs import all_configs as jax_configs
 from repro.configs import smoke_config as jax_smoke
 from repro.models import build_model as jax_build
@@ -265,40 +280,71 @@ def test_encode(rng):
           ted.encode(cfg, model, frames_t), MODEL_TOL)
 
 
+def _jax_stack(jcfg, params, tok, enc):
+    """The JAX package's decoder stack: train and prefill logits, the
+    prefill caches, then three decode steps from them; and the decode
+    caches it started from."""
+    out = {}
+    for mode in ("train", "prefill"):
+        out[mode], caches = strict(lambda p, t, e: jed.decode_stack(jcfg, p, t, e, mode=mode),
+                                   params, tok[:, :16], enc)
+    assert sorted(caches) == ["attn", "cross_k", "cross_v"]
+    out.update(cross_k=caches["cross_k"], cross_v=caches["cross_v"], **caches["attn"])
+    jc = jax.tree.map(lambda d, s: d.at[:, :, : s.shape[2]].set(s) if d.ndim == 5 and
+                      d.shape[2] != s.shape[2] else s,
+                      jed.init_decoder_caches(jcfg, 2, 24, enc.shape[1]), caches)
+    start = jax.tree.map(np.asarray, jc)
+    for t in range(16, 19):
+        out["decode %d" % t], jc = strict(lambda p, x, c, pos: jed.decode_stack(
+            jcfg, p, x, None, mode="decode", caches=c, cache_pos=pos),
+            params, tok[:, t : t + 1], jc, jnp.int32(t))
+    out["decode k"] = jc["attn"]["k"]
+    return out, start
+
+
+def _port_stack(cfg, model, tok_t, enc_t, start):
+    """The port's stack on the same inputs, decoding from ``start``."""
+    out = {}
+    for mode in ("train", "prefill"):
+        out[mode], caches = ted.decode_stack(cfg, model, tok_t[:, :16], enc_t, mode=mode)
+    assert sorted(caches) == ["attn", "cross_k", "cross_v"]
+    out.update(cross_k=caches["cross_k"], cross_v=caches["cross_v"], **caches["attn"])
+    tc = jax.tree.map(lambda a: to_tensor(a).clone(), start)
+    for t in range(16, 19):
+        out["decode %d" % t], tc_out = ted.decode_stack(
+            cfg, model, tok_t[:, t : t + 1], None, mode="decode", caches=tc, cache_pos=t)
+        assert tc_out is tc
+    out["decode k"] = tc["attn"]["k"]
+    return out
+
+
 def test_decode_stack_modes(rng):
     """train and prefill logits, the prefill caches (self K/V, cross K/V),
-    then three decode steps against the JAX package's from the same
-    caches."""
+    then three decode steps from the same caches and the K cache they
+    wrote: both packages in fp64 from the same weights and inputs within
+    1e-9 (the same arithmetic), and each bf16 leaf no further from the JAX
+    package's fp64 leaf than ``NO_WORSE`` times the JAX package's own bf16
+    leaf, in mean and max error (module docstring)."""
     jcfg, cfg, params, model = _whisper()
     frames, frames_t = bf16(rng, (2, cfg.encoder_frames, cfg.d_model))
     tokens = rng.integers(0, cfg.vocab_size, (2, 20), dtype=np.int32)
     tok, tok_t = jnp.asarray(tokens), torch.from_numpy(tokens)
     enc = strict(lambda p, f: jed.encode(jcfg, p, f), params, frames)
-    enc_t = to_tensor(np.asarray(enc))
-    for mode in ("train", "prefill"):
-        logits, caches = strict(lambda p, t, e: jed.decode_stack(jcfg, p, t, e, mode=mode),
-                                params, tok[:, :16], enc)
-        logits_t, caches_t = ted.decode_stack(cfg, model, tok_t[:, :16], enc_t, mode=mode)
-        close(logits, logits_t, MODEL_TOL, mode)
-    assert sorted(caches_t) == sorted(caches) == ["attn", "cross_k", "cross_v"]
-    for key in ("cross_k", "cross_v"):
-        close(caches[key], caches_t[key], MODEL_TOL, key)
-    for key in ("k", "v"):
-        close(caches["attn"][key], caches_t["attn"][key], MODEL_TOL, key)
-    B, max_len = 2, 24
-    jc = jax.tree.map(lambda d, s: d.at[:, :, : s.shape[2]].set(s) if d.ndim == 5 and
-                      d.shape[2] != s.shape[2] else s,
-                      jed.init_decoder_caches(jcfg, B, max_len, cfg.encoder_frames), caches)
-    tc = jax.tree.map(lambda a: to_tensor(np.asarray(a)).clone(), jc)
-    for t in range(16, 19):
-        logits, jc = strict(lambda p, x, c, pos: jed.decode_stack(
-            jcfg, p, x, None, mode="decode", caches=c, cache_pos=pos),
-            params, tok[:, t : t + 1], jc, jnp.int32(t))
-        logits_t, tc_out = ted.decode_stack(cfg, model, tok_t[:, t : t + 1], None, mode="decode",
-                                            caches=tc, cache_pos=t)
-        assert tc_out is tc
-        close(logits, logits_t, MODEL_TOL, "decode %d" % t)
-    close(jc["attn"]["k"], tc["attn"]["k"], MODEL_TOL)
+    ref, start = _jax_stack(jcfg, params, tok, enc)
+    got = _port_stack(cfg, model, tok_t, to_tensor(np.asarray(enc)), start)
+    with jax_fp64():
+        ref64, start64 = _jax_stack(dataclasses.replace(jcfg, dtype=jnp.float64),
+                                    jax.tree.map(lambda a: jnp.asarray(f64(a)), params),
+                                    tok, jnp.asarray(f64(enc)))
+    got64 = _port_stack(dataclasses.replace(cfg, dtype=torch.float64),
+                        params_from_jax(cfg, jax.tree.map(np.asarray, params),
+                                        device="cpu").to(torch.float64),
+                        tok_t, torch.from_numpy(f64(enc)), start64)
+    assert sorted(got) == sorted(ref) == sorted(got64) == sorted(ref64)
+    for name in ref:
+        assert got[name].dtype == torch.bfloat16 and got64[name].dtype == torch.float64, name
+        close64(ref64[name], got64[name], 1e-9, name)
+        no_worse(ref64[name], ref[name], got[name], name)
 
 
 def test_whisper_decode_matches_forward():
@@ -333,23 +379,42 @@ B, PROMPT, TOTAL = 2, 24, 28
 _runs = {}
 
 
-def _run(arch):
-    """Both packages: loss, prefill logits and caches, three decode steps."""
-    if arch in _runs:
-        return _runs[arch]
+def _run(arch, wide=False):
+    """Both packages: loss, prefill logits and caches, three decode steps;
+    ``wide``, both in fp64 from the same weights and inputs."""
+    if (arch, wide) in _runs:
+        return _runs[arch, wide]
     jcfg = jax_smoke(jax_configs()[arch])
     cfg = smoke_config(all_configs()[arch])
-    jm = jax_build(jcfg)
-    params = jm.init(jax.random.PRNGKey(3))
+    params = jax_build(jcfg).init(jax.random.PRNGKey(3))
     model = params_from_jax(cfg, jax.tree.map(np.asarray, params), device="cpu")
+    if wide:
+        jcfg = dataclasses.replace(jcfg, dtype=jnp.float64)
+        cfg = dataclasses.replace(cfg, dtype=torch.float64)
+        model = model.to(torch.float64)
+        model.cfg = cfg
+    with jax_fp64() if wide else contextlib.nullcontext():
+        if wide:
+            params = jax.tree.map(lambda a: jnp.asarray(f64(a)), params)
+        jm = jax_build(jcfg)
+        out = _both(jm, params, cfg, model, wide)
+    _runs[arch, wide] = out
+    return out
+
+
+def _both(jm, params, cfg, model, wide):
+    jcfg = jm.cfg
     ctx = jax_ctx()
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size, (B, TOTAL + 1), dtype=np.int32)
     extra, extra_t = {}, {}
     if cfg.family == "audio":
         frames = rng.normal(size=(B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
-        extra["frames"] = jnp.asarray(frames).astype(jnp.bfloat16)
-        extra_t["frames"] = to_tensor(np.asarray(extra["frames"]))
+        frames = np.asarray(jnp.asarray(frames).astype(jnp.bfloat16))
+        if wide:
+            frames = f64(frames)
+        extra["frames"] = jnp.asarray(frames)
+        extra_t["frames"] = to_tensor(frames)
     tok, tok_t = jnp.asarray(tokens), torch.from_numpy(tokens)
     out = {"cfg": cfg, "model": model, "params": params}
     out["loss"] = (strict(lambda p, b: jm.loss(p, b, ctx), params, {"tokens": tok, **extra}),
@@ -374,7 +439,6 @@ def _run(arch):
         steps.append((jl_d, tl_d))
     out["decode"] = steps
     out["decode_caches"] = (jc, tc)
-    _runs[arch] = out
     return out
 
 
@@ -393,15 +457,9 @@ def test_prefill_logits(arch):
     close(ref, got, MODEL_TOL)
 
 
-@pytest.mark.parametrize("key", ["prefill_caches", "decode_caches"])
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_caches(arch, key):
-    """Every cache leaf, the sLSTM's state tuple included, at its shape and
-    dtype, within 3e-2 relative and 3e-2 of the leaf's std absolute: the
-    JAX init draws wk and wv with fan_in = the head count, so whisper's K
-    and V have a std near 6, and one bf16 step of a layer's input moves an
-    element near zero by up to 0.1 (measured 0.094)."""
-    ref, got = _run(arch)[key]
+def _leaves(ref, got):
+    """(name, JAX leaf, port leaf) of two cache trees, the port's found by
+    the JAX leaf's path."""
     leaves = jax.tree_util.tree_leaves_with_path(ref)
     assert leaves
     for path, leaf in leaves:
@@ -411,6 +469,30 @@ def test_caches(arch, key):
         name = jax.tree_util.keystr(path)
         assert tuple(node.shape) == leaf.shape, name
         assert node.dtype == to_tensor(np.asarray(leaf)).dtype, name
+        yield name, leaf, node
+
+
+@pytest.mark.parametrize("key", ["prefill_caches", "decode_caches"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_caches(arch, key):
+    """Every cache leaf, the sLSTM's state tuple included, at its shape and
+    dtype. The xLSTM's within 3e-2 relative and 3e-2 of the leaf's std
+    absolute. Whisper's as its decoder stack is held
+    (``test_decode_stack_modes``): both packages in fp64 within 1e-9, and
+    each bf16 leaf no further from the JAX package's fp64 leaf than
+    ``NO_WORSE`` times the JAX package's own, in mean and max error (its
+    K/V have a std near 6, as the JAX init draws wk and wv with fan_in =
+    the head count, and near-hard attention turns one bf16 rounding that
+    lands the other way into up to 0.5 on an element; module docstring)."""
+    ref, got = _run(arch)[key]
+    if arch == "whisper-tiny":
+        ref64, got64 = _run(arch, wide=True)[key]
+        wide = dict((name, (a, b)) for name, a, b in _leaves(ref64, got64))
+        for name, leaf, node in _leaves(ref, got):
+            close64(wide[name][0], wide[name][1], 1e-9, name)
+            no_worse(wide[name][0], leaf, node, name)
+        return
+    for name, leaf, node in _leaves(ref, got):
         if name.endswith("['m']"):  # the -1e30 floor of an empty memory is exact
             assert np.array_equal(f32(leaf) <= -1e29, f32(node) <= -1e29), name
             continue

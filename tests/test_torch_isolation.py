@@ -1,7 +1,8 @@
 """repro_torch stands alone: it imports neither jax nor the JAX package.
 
 One subprocess blocks both and imports every module of the port; a static
-pass checks every import statement of the port and of ``chip_smoke.py``.
+pass checks every import statement of the port, of ``chip_smoke.py``, of the
+port's examples (``examples/*_torch.py``) and of ``tools/engine_sweep.py``.
 The host modules the port copied must stay byte-identical to the reference
 (their imports are all relative), so a fix in one is seen in both.
 """
@@ -73,7 +74,12 @@ def _absolute_imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py"])
+# The port's examples and tools stand alone too.
+STANDALONE = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("*_torch.py")) + [
+    "tools/engine_sweep.py"]
+
+
+@pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py"] + STANDALONE)
 def test_no_import_of_jax_or_repro(rel):
     for mod in _absolute_imports(ROOT / rel):
         top = mod.split(".")[0]
@@ -90,6 +96,12 @@ def test_the_mesh_modules_are_scanned():
     for rel in ("launch/mesh.py", "distributed/sharding.py", "distributed/pipeline.py",
                 "distributed/collectives.py", "distributed/compression.py"):
         assert str(Path("src") / "repro_torch" / rel) in PORT_FILES, rel
+
+
+def test_the_examples_and_the_sweep_are_scanned():
+    for rel in ("examples/quickstart_torch.py", "examples/serve_gateway_torch.py",
+                "examples/serve_fleet_torch.py", "tools/engine_sweep.py"):
+        assert rel in STANDALONE, rel
 
 
 def test_kernel_sources_are_in_the_package():

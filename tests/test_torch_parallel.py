@@ -37,7 +37,8 @@ heads over model), gemma-2b (MQA) and deepseek-v2-236b (MLA), whose caches
 split their sequence over model (flash-decode), deepseek-moe-16b (EP
 all-to-alls in decode), hymba-1.5b (its SSM state over model, its conv
 tail whole) and whisper-tiny (its cross K/V cache whole); tokens equal,
-logits within 1e-5 in fp32 (measured 5.1e-6 at most), and granite in bf16
+logits within 1e-5 in fp32 (measured 5.1e-6 at most), but hymba's, held
+to its fp64 run (the test says why) and in fp64 within 1e-12, and granite in bf16
 within phase 10's 5e-2 (the attention output is summed over two model
 ranks in bf16; measured 0.031; as drawn, unsoftened, a rounding flips
 which keys win and 0.5 % of the logits part by up to 0.15). Then a JAX
@@ -59,6 +60,7 @@ import numpy as np
 import pytest
 
 import _mesh_cases as cases
+from _jax_port import no_worse
 
 ROOT = Path(__file__).resolve().parents[1]
 TIGHT = 1e-4
@@ -153,23 +155,39 @@ def test_mesh_gradients_match_one_device(runs, arch):
 
 
 #: (arch, dtype): the tolerance (rtol = atol) on the decode logits, and the
-#: block of the first stack's attention cache each rank holds.
+#: block of the first stack's attention cache each rank holds. hymba-1.5b in
+#: fp32 (None) is held to its fp64 run (``test_serve_decode_on_2x2_matches_one_rank``).
 SERVE = {("granite-3-2b", "fp32"): (1e-5, {"k": (2, 2, 24, 1, 32)}),
          ("granite-3-2b", "bf16"): (5e-2, {"k": (2, 2, 24, 1, 32)}),
          ("gemma-2b", "fp32"): (1e-5, {"k": (2, 2, 12, 1, 32)}),
          ("deepseek-v2-236b", "fp32"): (1e-5, {"c_kv": (1, 2, 12, 32)}),
          ("deepseek-moe-16b", "fp32"): (1e-5, {"k": (1, 2, 24, 1, 32)}),
-         ("hymba-1.5b", "fp32"): (1e-5, {"k": (2, 2, 24, 1, 32)}),
+         ("hymba-1.5b", "fp32"): (None, {"k": (2, 2, 24, 1, 32)}),
+         ("hymba-1.5b", "fp64"): (1e-12, {"k": (2, 2, 24, 1, 32)}),
          ("whisper-tiny", "fp32"): (1e-5, {"k": (2, 2, 24, 1, 32)})}
 
 
 @pytest.mark.parametrize("arch,dtype", list(SERVE))
 def test_serve_decode_on_2x2_matches_one_rank(runs, arch, dtype):
+    """Tokens equal, logits within the case's tolerance; hymba-1.5b's fp32
+    logits, on the mesh, no further from its fp64 run of the same weights
+    than ``NO_WORSE`` times one rank's fp32 logits, in mean and max error.
+    hymba's fp32 logits on one rank lie up to 4.8e-5 from fp64 (measured:
+    step 5 of 8 amplifies the order of fp32 sums; the mesh's 1.4e-5), so
+    the two fp32 runs part by up to 3.3e-5 where the sums are taken in
+    another order over model (the row-parallel projections summed over
+    two ranks, the SSM's channels split); in fp64 the mesh equals one rank
+    within 1e-12 (measured 1.7e-14): the same arithmetic
+    (``tools/fp_walk.py --part hymba`` prints these figures)."""
     tol, blocks = SERVE[arch, dtype]
     serve = runs["granite"][0].results()["serve"]
     (tokens_1, logits_1), (tokens_4, logits_4) = serve["%s_%s" % (arch, dtype)]
     assert np.array_equal(tokens_1, tokens_4)
-    np.testing.assert_allclose(logits_4, logits_1, rtol=tol, atol=tol)
+    if tol is None:
+        (_, exact), _ = serve["%s_fp64" % arch]
+        no_worse(exact, logits_1, logits_4)
+    else:
+        np.testing.assert_allclose(logits_4, logits_1, rtol=tol, atol=tol)
     # [L, B / data, S (/ model when the KV heads cannot shard), K (/ model), Dh]
     held = serve["%s_%s_cache_block" % (arch, dtype)]
     for name, shape in blocks.items():
