@@ -2545,8 +2545,8 @@ CELL_LAYERS = 2  # depth of the production cell run on the card (its CE alone is
 # Phase 13 (c): production cells on (16, 16), rank 0 on the card over a fake
 # group of 256, each in a worker of its own: (arch, shape, layers, global
 # batch or None for the shape's own). xlstm-350m keeps one group of 8 blocks
-# (7 mLSTM + 1 sLSTM); its 16 rows a rank would need about 92 GB by the
-# dry-run, so it keeps 8. hymba-1.5b decode_32k keeps 2 layers.
+# (7 mLSTM + 1 sLSTM) and 8 of its 16 rows a rank, the cut its leg has been
+# measured at. hymba-1.5b decode_32k keeps 2 layers.
 CELL_LEGS = (("granite-3-2b", "train_4k", CELL_LAYERS, None),
              ("xlstm-350m", "train_4k", 8, 128),
              ("hymba-1.5b", "decode_32k", 2, None))

@@ -11,8 +11,10 @@ own part (its backward a reduce-scatter), ``gather_from`` blocks whose
 every rank then reads the whole, as every other rank does (its backward
 this rank's block of the gradient). ``pmean`` is the adjoint pair
 of a mean (its backward divides by the axis size), ``all_to_all`` its own
-adjoint and ``shift`` the adjoint pair of a ring ``ppermute``. The ``*_`` forms and the gathers and
-scatters carry no gradient. Each is the identity on an axis of size 1 or
+adjoint and ``shift`` the adjoint pair of a ring ``ppermute``;
+``split_weight_grad_einsum`` is a product with a weight every rank holds
+whole, whose gradient each rank computes a block of. The ``*_`` forms and
+the gathers and scatters carry no gradient. Each is the identity on an axis of size 1 or
 off the mesh, so a world-size-1 run computes what the one-device code
 computes.
 """
@@ -151,6 +153,56 @@ class _Shift(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _ring(grad, ctx.mesh, ctx.axis, -1), None, None
+
+
+class _SplitWeightGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, eq, x, w, mesh, axis, dim):
+        ctx.eq, ctx.mesh, ctx.axis, ctx.dim = eq, mesh, axis, dim
+        ctx.save_for_backward(x, w)
+        return torch.einsum(eq, x, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        ins, out = ctx.eq.replace(" ", "").split("->")
+        a, b = ins.split(",")
+        dx = torch.einsum("%s,%s->%s" % (out, b, a), grad, w) if ctx.needs_input_grad[1] \
+            else None
+        dw = None
+        if ctx.needs_input_grad[2]:
+            letter, n = b[ctx.dim], w.shape[ctx.dim] // axis_size(ctx.mesh, ctx.axis)
+            start = ctx.mesh.get_local_rank(ctx.axis) * n
+            # this rank's block of the weight's dim: the operand that carries it narrowed
+            xs = x.narrow(_at(a, letter, x.dim()), start, n) if letter in a else x
+            gs = grad.narrow(_at(out, letter, grad.dim()), start, n) if letter in out else grad
+            dw = all_gather(torch.einsum("%s,%s->%s" % (a, out, b), xs, gs), ctx.mesh,
+                            ctx.axis, ctx.dim)
+        return None, dx, dw, None, None, None
+
+
+def _at(subscripts: str, letter: str, ndim: int) -> int:
+    """The dim of ``letter`` in an operand of ``ndim`` dims written
+    ``subscripts`` (which may open with ``...``)."""
+    named = subscripts.replace("...", "")
+    return ndim - len(named) + named.index(letter)
+
+
+def split_weight_grad_einsum(eq: str, x: torch.Tensor, w: torch.Tensor, mesh,
+                             axis: str = "model") -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` where ``x``, the whole weight ``w`` and the
+    result's gradient are the same on every rank of ``axis``: each rank
+    computes the weight's gradient only for its block of the first dim of
+    ``w`` that ``axis`` divides, and the blocks are gathered, as GSPMD
+    splits a replicated weight's gradient over the ranks that hold the same
+    data. ``x``'s gradient is whole on each rank. Plain ``torch.einsum`` off
+    the mesh or where no dim of ``w`` divides (``w``'s subscripts name every
+    dim)."""
+    n = axis_size(mesh, axis) if mesh is not None else 1
+    dim = next((d for d, s in enumerate(w.shape) if s % n == 0), None) if n > 1 else None
+    if dim is None:
+        return torch.einsum(eq, x, w)
+    return _SplitWeightGrad.apply(eq, x, w, mesh, axis, dim)
 
 
 def psum(x: torch.Tensor, mesh, *axes: str) -> torch.Tensor:

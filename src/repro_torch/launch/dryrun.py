@@ -29,8 +29,8 @@ What a cell counts, per chip and per step:
   * collectives by kind, with bytes and group size, as rank 0 issues them
     (``roofline.collective_wire_bytes`` takes the ring factors);
   * memory: the arguments (rank 0's parameter, optimizer and batch
-    blocks, or its parameters and caches), the live bytes at the peak of
-    the step (every storage an operation makes, held until it is freed,
+    blocks, or its parameters and caches and decode's position), the live
+    bytes at the peak of the step (every storage an operation makes, held until it is freed,
     rounded up to the CUDA allocator's 512 bytes), the peak less the
     arguments, and whether the peak fits one H100 (``fits_h100``).
 
@@ -277,8 +277,9 @@ def prepare_step(cfg, shape: ShapeConfig, mesh, rules, device, generator=None):
                                                  device=device),
                        caches_abstract, shardings["caches"])
     params = model.param_tree()
-    return [params, caches], local_rows(mesh, rows, batch), \
-        lambda: decode_fn(params, batch["tokens"], caches, shape.seq_len - 1)
+    pos = shape.seq_len - 1  # an int here; an int32 scalar argument of the JAX step, held as one
+    return [params, caches, torch.tensor(pos, dtype=torch.int32, device=device)], \
+        local_rows(mesh, rows, batch), lambda: decode_fn(params, batch["tokens"], caches, pos)
 
 
 def _storage_bytes(tree) -> int:

@@ -136,28 +136,33 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor, ctx=None) -> torch.Te
     return layer_norm(x, params["enc_ln"]["w"], params["enc_ln"]["b"])
 
 
-def _cross(p, x, enc_k, enc_v, kv_index=None):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"]) + p["bq"]
+def _cross(p, x, enc_k, enc_v, kv_index=None, einsum=torch.einsum):
+    q = einsum("bsd,dhk->bshk", x, p["wq"]) + p["bq"]
     if kv_index is not None:
         enc_k, enc_v = enc_k[:, :, kv_index], enc_v[:, :, kv_index]
     out = causal_attention(q, enc_k, enc_v, causal=False)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 _cross_with_kv = _cross
 
 
-def _enc_kv(p, enc):
-    k = torch.einsum("btd,dhk->bthk", enc, p["wk"]) + p["bk"]
-    v = torch.einsum("btd,dhk->bthk", enc, p["wv"]) + p["bv"]
+def _enc_kv(p, enc, einsum=torch.einsum):
+    k = einsum("btd,dhk->bthk", enc, p["wk"]) + p["bk"]
+    v = einsum("btd,dhk->bthk", enc, p["wv"]) + p["bv"]
     return k, v
 
 
 def _cross_block(cfg: ModelConfig, ctx, p, h, enc, cache, mode: str):
     """Cross attention: (its output, the cross K/V of every head for the
     cache). On a mesh over this rank's query heads; their K/V heads are
-    its block when the K/V heads shard, else read from the whole."""
+    its block when the K/V heads shard, else read from the whole. Where
+    the query heads stay whole, every rank runs every head and splits the
+    weights' gradients (``transformer.wgrad_split``)."""
+    from .transformer import wgrad_split
+
     mesh = _tp_mesh(ctx, p["wq"].shape[1], cfg.n_heads)
+    einsum = wgrad_split(ctx and ctx.mesh) if mesh is None else torch.einsum
     n_local = p["wq"].shape[1]
     kv_split = mesh is not None and p["wk"].shape[1] < cfg.n_kv_heads
     kv_index = None
@@ -173,8 +178,9 @@ def _cross_block(cfg: ModelConfig, ctx, p, h, enc, cache, mode: str):
 
             p = _with(p, **{k: collectives.copy_to(p[k], mesh, "model")
                             for k in ("wk", "wv", "bk", "bv")})
-        enc_k, enc_v = _enc_kv(p, collectives.copy_to(enc, mesh, "model"))
-    out = _cross_with_kv(p, collectives.copy_to(h, mesh, "model"), enc_k, enc_v, kv_index)
+        enc_k, enc_v = _enc_kv(p, collectives.copy_to(enc, mesh, "model"), einsum)
+    out = _cross_with_kv(p, collectives.copy_to(h, mesh, "model"), enc_k, enc_v, kv_index,
+                         einsum)
     if mode == "prefill" and kv_split:  # the cache keeps every head
         enc_k = collectives.all_gather(enc_k, mesh, "model", dim=2)
         enc_v = collectives.all_gather(enc_v, mesh, "model", dim=2)
@@ -218,7 +224,7 @@ def decode_stack(
     ``[L, ...]`` (self-attention K/V and the cross K/V), decode's the
     ``caches`` given, written in place at ``cache_pos``. With ``ctx``, the
     logits are this rank's vocabulary columns when the vocabulary shards."""
-    from .transformer import sharded_embed_lookup
+    from .transformer import sharded_embed_lookup, wgrad_split
 
     B, S = tokens.shape
     dev = tokens.device
@@ -237,8 +243,10 @@ def decode_stack(
                                      cache=_layer_cache(caches, i), cache_pos=cache_pos, ctx=ctx)
         per_layer.append(cache_out)
     x = layer_norm(x, params["dec_ln"]["w"], params["dec_ln"]["b"])
-    x = collectives.copy_to(x, _tp_mesh(ctx, params["embed"].shape[0], cfg.vocab_size), "model")
-    logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+    vocab_mesh = _tp_mesh(ctx, params["embed"].shape[0], cfg.vocab_size)
+    x = collectives.copy_to(x, vocab_mesh, "model")
+    einsum = torch.einsum if vocab_mesh is not None else wgrad_split(ctx and ctx.mesh)
+    logits = einsum("bsd,vd->bsv", x, params["embed"])
     if mode == "prefill":
         return logits, {"attn": {k: torch.stack([c["attn"][k] for c in per_layer])
                                  for k in ("k", "v")},

@@ -474,12 +474,15 @@ def gqa_attention_block(
     causal: bool = True,
     use_rope: bool = True,
     kv_index: Optional[torch.Tensor] = None,
+    einsum: Callable = torch.einsum,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """GQA attention with rope; returns (y, cache_out).
 
     ``kv_index`` (a rank's block of query heads under tensor parallelism,
     its KV heads whole) names the KV head each query head reads; the
-    caches keep every KV head.
+    caches keep every KV head. ``einsum`` computes the four projections
+    (``collectives.split_weight_grad_einsum`` where every rank holds every
+    head).
 
     * train:   cache_out is None.
     * prefill: cache_out = {"k","v"} post-rope full-sequence tensors.
@@ -487,9 +490,9 @@ def gqa_attention_block(
                place (linear caches at ``cache_pos``, sliding-window ring
                buffers at ``cache_pos % W``) and returned.
     """
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    q = einsum("bsd,dhk->bshk", x, params["wq"])
+    k = einsum("bsd,dhk->bshk", x, params["wk"])
+    v = einsum("bsd,dhk->bshk", x, params["wv"])
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -529,7 +532,7 @@ def gqa_attention_block(
         )
         new_cache = {"k": k, "v": v} if mode == "prefill" else None
 
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    y = einsum("bshk,hkd->bsd", out, params["wo"])
     return y, new_cache
 
 

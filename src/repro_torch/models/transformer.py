@@ -188,8 +188,9 @@ def _mla_attention(
     """Multi-head Latent Attention. Decode runs the absorbed form against
     the compressed cache [B, S, kv_lora] + [B, S, rope_d], written in
     place. With ``mesh``, the heads are this rank's block of ``model``:
-    the replicated latents enter through ``copy_to`` and the output
-    leaves through ``psum``. With ``split`` (a mesh), the cache holds this
+    the replicated latents enter through ``copy_to`` (their down
+    projections' gradients split, ``wgrad_split``) and the output leaves
+    through ``psum``. With ``split`` (a mesh), the cache holds this
     rank's block of positions along ``model`` and decode is flash-decode
     (``_split_softmax_values``)."""
     B, S, _ = x.shape
@@ -197,13 +198,14 @@ def _mla_attention(
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     scale = float((nope + rope_d) ** -0.5)
 
-    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dq"]), p["q_norm"])
+    down = wgrad_split(mesh)
+    cq = rms_norm(down("bsd,dr->bsr", x, p["w_dq"]), p["q_norm"])
     q = torch.einsum("bsr,rhk->bshk", enter(cq), p["w_uq"])
     n_heads = q.shape[2]
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    ckv_full = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+    ckv_full = down("bsd,dr->bsr", x, p["w_dkv"])
     c_kv = rms_norm(ckv_full[..., : cfg.kv_lora_rank], p["kv_norm"])
     k_rope = apply_rope(ckv_full[:, :, None, cfg.kv_lora_rank :], positions, cfg.rope_theta)[:, :, 0]
 
@@ -263,6 +265,16 @@ def _attention(cfg: ModelConfig, ctx, p, h, positions, **kw):
                             sliding_window=cfg.sliding_window or None, **kw)
 
 
+def wgrad_split(mesh):
+    """The products of a whole weight whose inputs every ``model`` rank
+    holds alike: ``collectives.split_weight_grad_einsum`` on a mesh (each
+    rank computes its block of the weight's gradient, as GSPMD splits it),
+    else ``torch.einsum``."""
+    if mesh is None or axis_size(mesh, "model") == 1:
+        return torch.einsum
+    return functools.partial(collectives.split_weight_grad_einsum, mesh=mesh, axis="model")
+
+
 def _split_cache(ctx, kw) -> bool:
     """Decode against caches whose positions split over ``model``."""
     return kw.get("mode") == "decode" and ctx is not None and bool(ctx.cache_seq_axis) \
@@ -273,29 +285,35 @@ def tp_gqa_attention(ctx: Optional[ModelContext], p, h, positions, *, n_heads: i
                      n_kv_heads: int, **kw):
     """``layers.gqa_attention_block`` (its keywords in ``kw``) on this rank's
     heads when they shard over ``model``: ``h`` enters through ``copy_to``,
-    the output leaves through ``psum``. When the KV heads stay whole (their
+    the output leaves through ``psum``; where the query heads stay whole,
+    every rank runs every head and splits the weights' gradients
+    (``wgrad_split``). When the KV heads stay whole (their
     count does not divide ``model``) each query head reads its own, and
     the KV weights' gradient is summed over ``model``: where no cache is
     written (train) a rank projects only the KV heads its query heads read,
     a slice of the whole ``wk``/``wv`` whose gradient lands in zeros of the
-    whole leaf; the prefill projects every KV head, as the cache keeps
-    them. Decode against caches split over ``model`` is
-    ``_gqa_split_decode``."""
+    whole leaf. So does the prefill where every rank reads as many KV heads
+    (``own_kv_heads``): its caches then hold this rank's KV heads, and
+    ``gather_kv_heads`` makes every head of them. Decode against caches
+    split over ``model`` is ``_gqa_split_decode``."""
     mesh = _mesh(ctx)
     if _split_cache(ctx, kw):
         return _gqa_split_decode(p, h, positions, kw["cache"], kw["cache_pos"], mesh,
                                  n_heads=n_heads, rope_theta=kw.get("rope_theta", 10000.0),
                                  use_rope=kw.get("use_rope", True),
                                  sliding_window=kw.get("sliding_window"))
-    if _tp(ctx) == 1 or p["wq"].shape[1] == n_heads:
+    if _tp(ctx) == 1:
         return gqa_attention_block(p, h, positions, **kw)
+    if p["wq"].shape[1] == n_heads:  # every head on every rank
+        return gqa_attention_block(p, h, positions, einsum=wgrad_split(mesh), **kw)
     kv_index = None
     if p["wk"].shape[1] == n_kv_heads and n_kv_heads < n_heads:
         n_local, group = p["wq"].shape[1], n_heads // n_kv_heads
         first = axis_index(mesh, "model") * n_local
         lo, n_kv = 0, n_kv_heads
-        if kw.get("mode", "train") == "train":  # this rank's KV heads only
-            lo = first // group
+        own = own_kv_heads(mesh, n_heads, n_kv_heads)
+        if kw.get("mode", "train") == "train" or (kw.get("mode") == "prefill" and own):
+            lo = first // group  # this rank's KV heads only
             n_kv = (first + n_local - 1) // group + 1 - lo
         kv_index = (first + torch.arange(n_local, device=h.device)) // group - lo
         p = _with(p, **{k: collectives.copy_to(p[k], mesh, "model").narrow(-2, lo, n_kv)
@@ -303,6 +321,32 @@ def tp_gqa_attention(ctx: Optional[ModelContext], p, h, positions, *, n_heads: i
     y, cache = gqa_attention_block(p, collectives.copy_to(h, mesh, "model"), positions,
                                    kv_index=kv_index, **kw)
     return collectives.psum(y, mesh, "model"), cache
+
+
+def own_kv_heads(mesh, n_heads: int, n_kv_heads: int) -> Optional[int]:
+    """How many KV heads each rank's query heads read, where the query heads
+    split over ``model`` and the KV heads stay whole, if every rank reads
+    as many (else None): a prefill then projects only those."""
+    tp = axis_size(mesh, "model") if mesh is not None else 1
+    if tp == 1 or n_heads % tp or n_kv_heads % tp == 0 or n_kv_heads >= n_heads:
+        return None
+    n_local, group = n_heads // tp, n_heads // n_kv_heads
+    counts = {(r * n_local + n_local - 1) // group + 1 - r * n_local // group for r in range(tp)}
+    return counts.pop() if len(counts) == 1 else None
+
+
+def gather_kv_heads(t: torch.Tensor, mesh, n_heads: int, n_kv_heads: int,
+                    dim: int) -> torch.Tensor:
+    """Every KV head, along ``dim``, from each rank's own (a prefill cache
+    of ``own_kv_heads``): gathered over ``model``, each head taken from the
+    first rank that holds it."""
+    tp, n = axis_size(mesh, "model"), t.shape[dim]
+    n_local, group = n_heads // tp, n_heads // n_kv_heads
+    lo = [r * n_local // group for r in range(tp)]
+    pick = [next(r * n + k - lo[r] for r in range(tp) if lo[r] <= k < lo[r] + n)
+            for k in range(n_kv_heads)]
+    return collectives.all_gather(t, mesh, "model", dim).index_select(
+        dim, torch.tensor(pick, device=t.device))
 
 
 def _split_softmax_values(scores: torch.Tensor, values, mesh) -> torch.Tensor:
@@ -595,15 +639,17 @@ def sharded_embed_lookup(ctx: Optional[ModelContext], table: torch.Tensor,
 def unembed(cfg: ModelConfig, params, x: torch.Tensor,
             ctx: Optional[ModelContext] = None) -> torch.Tensor:
     """Logits; on a mesh, this rank's vocabulary columns when the
-    vocabulary shards over ``model``."""
+    vocabulary shards over ``model``, else every column on every rank, the
+    table's gradient split (``wgrad_split``)."""
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     v_local = table.shape[0] if cfg.tie_embeddings else table.shape[1]
+    einsum = wgrad_split(_mesh(ctx))
     if _tp(ctx) > 1 and v_local < cfg.vocab_size:
-        x = collectives.copy_to(x, ctx.mesh, "model")
+        x, einsum = collectives.copy_to(x, ctx.mesh, "model"), torch.einsum
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, table)
+        logits = einsum("bsd,vd->bsv", x, table)
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, table)
+        logits = einsum("bsd,dv->bsv", x, table)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return constrain(logits, _rules(ctx), "batch", None, "vocab")

@@ -22,15 +22,21 @@ take fp32 operands here, an exact cast, so the sums are the same.
 
 With ``mesh`` (tensor parallelism), each ``ssm_inner`` leaf is this rank's
 block of ``model``, where the JAX package annotates the layouts and leaves
-the split to GSPMD. The heads stay whole (xlstm-350m has 4, which cannot
-split 16 ways), so every rank runs the cell on every head:
+the split to GSPMD:
 
   * mLSTM: ``w_up`` packs ``inner | z`` in one ``ssm_inner`` dim, so its
     output blocks are gathered (``collectives.gather_to``) and each rank
     takes its channels of ``inner`` and of ``z``; ``w_qkv`` and ``w_if``
     contract those channels, summed over ``model`` (``psum``), so q, k, v
-    and the gates are whole on every rank; the cell's output is normalized
-    over all its channels and each rank keeps its block (``out_norm``'s),
+    and the gates are whole on every rank. From no state (train, prefill)
+    the cell runs on this rank's heads, or on one head and a block of its
+    value columns where the ranks outnumber the heads (xlstm-350m's 4 heads
+    on 16 ranks: a head and 128 of its 512 value columns a rank;
+    ``_cell_block``), and its outputs are gathered (``gather_from``; q, k,
+    v and the gates take their gradients summed over ``model``); a
+    prefill's final state is gathered too (``_gather_cell_state``) and cut
+    to this rank's ``Dk`` rows. The cell's output is normalized over all
+    its channels and each rank keeps its block (``out_norm``'s),
     gated by its ``z``, and ``w_down``'s partial product is summed over
     ``model``. In decode the matrix memory ``c [B, H, Dk, Dv]`` and ``n
     [B, H, Dk]`` hold this rank's ``Dk`` rows (``cache_spec``): the update
@@ -138,7 +144,7 @@ def _mlstm_chunkwise(q, k, v, log_i, log_f, *, chunk: int = 256, init_state=None
     if init_state is not None:
         c_mat, n_vec, m_prev = init_state["c"], init_state["n"], init_state["m"]
     else:
-        c_mat = torch.zeros((b, h, dh, dh), dtype=acc, device=q.device)
+        c_mat = torch.zeros((b, h, dh, v.shape[-1]), dtype=acc, device=q.device)
         n_vec = torch.zeros((b, h, dh), dtype=acc, device=q.device)
         m_prev = torch.full((b, h), -1e30, dtype=acc, device=q.device)
 
@@ -203,6 +209,39 @@ def _mlstm_recurrent_step(state, q, k, v, log_i, log_f, mesh=None):
     return {"c": c, "n": n, "m": m_new}, h
 
 
+def _cell_block(mesh, n_heads: int, dv: int) -> Optional[Tuple[slice, slice]]:
+    """(this rank's heads, its value columns) where the mLSTM cell splits
+    over ``model`` in training: a block of heads where they divide the
+    ranks, else one head and a block of its value columns where the ranks
+    divide the heads and the columns; None off a mesh or otherwise."""
+    if mesh is None or axis_size(mesh, "model") == 1:
+        return None
+    tp, r = axis_size(mesh, "model"), axis_index(mesh, "model")
+    if n_heads % tp == 0:
+        n = n_heads // tp
+        return slice(r * n, (r + 1) * n), slice(None)
+    per = tp // n_heads
+    if tp % n_heads or dv % per:
+        return None
+    w = dv // per
+    return slice(r // per, r // per + 1), slice(r % per * w, (r % per + 1) * w)
+
+
+def _gather_cell_state(block: Dict[str, torch.Tensor], mesh, n_heads: int):
+    """The whole state (c [B, H, Dk, Dv], n [B, H, Dk], m [B, H]) from each
+    rank's block of a ``_cell_block`` cell: ``c`` of its heads and value
+    columns, ``n`` and ``m`` of its heads (alike on the ranks of a head)."""
+    tp = axis_size(mesh, "model")
+    c, n, m = (collectives.all_gather(block[k][None], mesh, "model", 0) for k in "cnm")
+    b, n_h, dk, w = block["c"].shape
+    groups = n_heads // n_h  # of heads; each over ``per`` ranks' value columns
+    per = tp // groups
+    c = c.reshape(groups, per, b, n_h, dk, w).permute(2, 0, 3, 4, 1, 5)
+    return {"c": c.reshape(b, n_heads, dk, per * w),
+            "n": n.reshape(groups, per, b, n_h, dk)[:, 0].transpose(0, 1).reshape(b, n_heads, dk),
+            "m": m.reshape(groups, per, b, n_h)[:, 0].transpose(0, 1).reshape(b, n_heads)}
+
+
 def _rms_norm_block(x: torch.Tensor, weight: torch.Tensor, cols: slice,
                     eps: float = 1e-6) -> torch.Tensor:
     """``rms_norm(x, w)[..., cols]`` from ``x`` whole and ``weight``, the
@@ -249,8 +288,13 @@ def mlstm_block(
         gates = collectives.psum(torch.einsum("bse,eg->bsg", inner, params["w_if"]), mesh,
                                  "model")
     dh = d_in // n_heads
-    q, k, v = (t.reshape(b, s, n_heads, dh) for t in qkv.chunk(3, dim=-1))
+    # from no state on a mesh (train, prefill): the cell on this rank's heads
+    # and value columns, the gradients of q, k, v and the gates summed over model
+    cell = _cell_block(mesh, n_heads, dh) if cols is not None and state is None else None
     gates = at_least_fp32(gates) + at_least_fp32(params["b_if"])
+    if cell is not None:
+        qkv, gates = (collectives.copy_to(t, mesh, "model") for t in (qkv, gates))
+    q, k, v = (t.reshape(b, s, n_heads, dh) for t in qkv.chunk(3, dim=-1))
     log_i, f_raw = gates.chunk(2, dim=-1)  # [B,S,H]
     log_f = F.logsigmoid(f_raw)
 
@@ -261,6 +305,21 @@ def mlstm_block(
             state, q[:, 0], k[:, 0], v[:, 0], log_i[:, 0], log_f[:, 0], mesh=mesh
         )
         h = h1[:, None]
+    elif cell is not None:
+        heads, vcols = cell
+        mine = (q[:, :, heads], k[:, :, heads], v[:, :, heads, vcols], log_i[..., heads],
+                log_f[..., heads])
+        if s <= 256 and not return_state:
+            h = _mlstm_parallel(*mine)
+        else:
+            h, final = _mlstm_chunkwise(*mine)
+            if return_state:  # every rank's block of the state; this rank's Dk rows of it
+                new_state = _gather_cell_state(final, mesh, n_heads)
+                if rows is not None:
+                    new_state = dict(new_state, c=new_state["c"][..., rows, :],
+                                     n=new_state["n"][..., rows])
+        # every rank's block, in rank order: heads major, then value columns
+        h = collectives.gather_from(h.reshape(b, s, -1), mesh, "model", -1)
     elif state is None and not return_state and s <= 256:
         h = _mlstm_parallel(q, k, v, log_i, log_f)
     else:

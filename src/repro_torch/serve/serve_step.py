@@ -32,7 +32,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..distributed import collectives
 from ..distributed.sharding import NamedSharding, P, axis_size, batch_partition, fit_spec, mesh_shape
-from ..models.transformer import ModelContext
+from ..models.transformer import ModelContext, gather_kv_heads, own_kv_heads
 
 
 def _dp_axes(mesh) -> Tuple[str, ...]:
@@ -171,12 +171,21 @@ def _mesh_serve_steps(model, mesh, rules, *, batch: int, max_len: int):
             logits = collectives.all_gather(logits, mesh, a, dim=0)
         return logits
 
+    own = own_kv_heads(mesh, cfg.n_heads, cfg.n_kv_heads)
+
+    def gather_cache(t, sh, name):
+        """A prefill cache leaf whole: every KV head where the leaf holds
+        this rank's own (``transformer.own_kv_heads``), every block."""
+        if own and name in ("k", "v"):
+            t = gather_kv_heads(t, mesh, cfg.n_heads, cfg.n_kv_heads, dim=3)
+        return sh.gather(t)
+
     @torch.inference_mode()
     def prefill_fn(params, batch_inputs):
         del params  # the model holds its blocks
         logits, caches = model.prefill(local_rows(mesh, rows, batch_inputs), ctx)
-        caches = _map_tree(lambda t, sh: sh.gather(t), caches,
-                           _prefix_tree(p_cache, caches))
+        caches = _map_tree(gather_cache, caches, _prefix_tree(p_cache, caches),
+                           _prefix_tree(_names(caches_abstract), caches))
         return gathered_logits(logits), caches
 
     @torch.inference_mode()

@@ -321,32 +321,50 @@ SERVE = [("granite-3-2b", "fp32"), ("granite-3-2b", "bf16"), ("gemma-2b", "fp32"
 GRADS = {"granite-3-2b": (2, 2), "gemma-2b": (2, 2), "qwen2.5-32b": (2, 2),
          "internlm2-20b": (2, 2), "hymba-1.5b": (2, 2), "internvl2-76b": (2, 2),
          "whisper-tiny": (2, 2), "xlstm-350m": (2, 2)}
-#: Tensor parallelism of the xLSTM forms, and granite's and qwen2.5's
-#: (with K/V biases) KV heads, which do not divide model = 4: (arch, mesh
-#: shape).
-TP_GRADS = [("xlstm-350m", (2, 2)), ("xlstm-350m", (1, 4)), ("granite-3-2b", (1, 4)),
-            ("qwen2.5-32b", (1, 4))]
+#: Tensor parallelism of the xLSTM forms (with 2 heads on model = 4, each
+#: rank's mLSTM cell one head and half its value columns), granite's and
+#: qwen2.5's (with K/V biases) KV heads, which do not divide model = 4, and
+#: the whole weights whose gradients each rank computes a quarter of
+#: (``wgrad_split``): 5 query heads and a vocabulary of 514, which do not
+#: divide 4 either (gemma's one KV head; whisper's self, cross and encoder
+#: attention; deepseek-v2's MLA down projections, without experts): (tag,
+#: arch, mesh shape, config fields replaced).
+TP_GRADS = [("xlstm-350m", "xlstm-350m", (2, 2), {}), ("xlstm-350m", "xlstm-350m", (1, 4), {}),
+            ("xlstm-350m-2heads", "xlstm-350m", (1, 4), dict(n_heads=2)),
+            ("granite-3-2b", "granite-3-2b", (1, 4), {}),
+            ("qwen2.5-32b", "qwen2.5-32b", (1, 4), {}),
+            ("gemma-2b-whole", "gemma-2b", (1, 4), dict(n_heads=5, vocab_size=514)),
+            ("whisper-tiny-whole", "whisper-tiny", (1, 4),
+             dict(n_heads=5, n_kv_heads=5, head_dim=32, vocab_size=514)),
+            ("deepseek-v2-236b-dense", "deepseek-v2-236b", (1, 4),
+             dict(n_experts=0, vocab_size=514))]
+#: The TP_GRADS tags whose FLOPs are counted with and without the split.
+TP_SPLIT = ("gemma-2b-whole", "whisper-tiny-whole", "deepseek-v2-236b-dense")
 #: Decode through the serve steps: (tag, arch, mesh shape, config fields
 #: replaced). hymba's 64-slot ring splits over model; at smoke width its 4
 #: heads split and its 2 KV heads stay whole, with 5 and 5 both stay whole.
 TP_SERVE = [("xlstm-350m", "xlstm-350m", (2, 2), {}),
+            ("xlstm-350m-2heads", "xlstm-350m", (1, 4), dict(n_heads=2)),
             ("hymba-1.5b", "hymba-1.5b", (1, 4), {}),
             ("hymba-1.5b-5heads", "hymba-1.5b", (1, 4),
              dict(n_heads=5, n_kv_heads=5, head_dim=32))]
 TP_PROMPT, TP_NEW = 48, 40  # max_len 96: the ring wraps past 64
 
 
-def _grads_on(arch, shape, products=None):
+def _grads_on(arch, shape, products=None, replaced=None, flops=None):
     """The loss and every parameter's gradient of one fp32 batch (attention
     softened) on a (data, model) mesh of ``shape``, summed over data and
     gathered over model, against one device: the mesh's forward and
     backward collectives for the families without experts (whose aux loss
     and capacity depend on the mesh). ``products``: a dict that receives
     the shapes of the products with layer 0's ``wk`` and ``wv`` on the
-    mesh."""
+    mesh. ``replaced``: config fields. ``flops``: a dict that receives the
+    FLOPs of the mesh's loss and gradients (``split``), and again with
+    ``collectives.split_weight_grad_einsum`` a plain einsum (``whole``)."""
     import torch
+    from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.distributed import default_rules
+    from repro_torch.distributed import collectives, default_rules
     from repro_torch.distributed.sharding import spec_axes
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.layers import leaf_paths, stack_depth, tree_tensors
@@ -358,7 +376,7 @@ def _grads_on(arch, shape, products=None):
     batch = {"tokens": torch.from_numpy(batches(512, 1)[0]["tokens"]).long()}
     runs = []
     for on_mesh in (False, True):
-        model = _torch_model(arch, "fp32")
+        model = _torch_model(arch, "fp32", **(replaced or {}))
         cfg = model.cfg
         extra = {"audio": ("frames", cfg.encoder_frames),
                  "vlm": ("patches", cfg.vision_tokens)}.get(cfg.family)
@@ -374,7 +392,21 @@ def _grads_on(arch, shape, products=None):
         shardings = param_shardings(model, mesh, rules)
         place_model(model, shardings)
         ctx = ModelContext(mesh, rules)
-        if products is None:
+        if flops is not None:
+            split = collectives.split_weight_grad_einsum
+            for key in ("whole", "split"):
+                collectives.split_weight_grad_einsum = split if key == "split" else (
+                    lambda eq, x, w, mesh, axis="model": torch.einsum(eq, x, w))
+                try:
+                    with FlopCounterMode(display=False) as count:
+                        loss, _ = model.loss(local_rows(mesh, ("data",), batch), ctx)
+                        grads = torch.autograd.grad(loss, tree_tensors(model.param_tree()))
+                finally:
+                    collectives.split_weight_grad_einsum = split
+                flops[key] = count.get_total_flops()
+            del grads
+            loss, _ = model.loss(local_rows(mesh, ("data",), batch), ctx)
+        elif products is None:
             loss, _ = model.loss(local_rows(mesh, ("data",), batch), ctx)
         else:
             attn = model["layers"][0]["attn"]
@@ -432,12 +464,15 @@ def _product_shapes(weights):
 
 def _torch_tp_grads():
     out = {}
-    for arch, shape in TP_GRADS:
-        products = {} if arch == "granite-3-2b" else None
-        key = "%s@%dx%d" % ((arch,) + shape)
-        out[key] = _grads_on(arch, shape, products)
+    for tag, arch, shape, replaced in TP_GRADS:
+        products = {} if tag == "granite-3-2b" else None
+        flops = {} if tag in TP_SPLIT else None
+        key = "%s@%dx%d" % ((tag,) + shape)
+        out[key] = _grads_on(arch, shape, products, replaced, flops)
         if products is not None:
             out[key + "/products"] = products
+        if flops is not None:
+            out[key + "/flops"] = flops
     return out
 
 

@@ -9,7 +9,8 @@ process holds one fake group, one for the 256-rank mesh and one for the
     argument bytes equal rank 0's blocks from ``param_shardings`` and
     ``opt_state_shardings`` plus its batch rows; the FLOPs equal this
     file's count from the config (the unembedding whole on each chip: its
-    49 155 rows do not divide ``model``; 8 KV heads do not divide 16, so
+    49 155 rows do not divide ``model``, and each chip computes the
+    table's gradient for its 128 columns of ``d_model``; 8 KV heads do not divide 16, so
     rank 0 projects only the one KV head its 2 query heads read; ``dots``
     remat runs attention's two products again in the backward); ZeRO-1's reduce-scatter and
     all-gather over ``data`` are counted; the extrapolation from 1 and 2
@@ -73,9 +74,11 @@ def _dense_train_flops(cfg, shape, data=16, model=16):
     projections forward and backward (3x), attention's two products
     forward, again in the ``dots`` recompute, and backward (4x), the
     unembedding (3x). Heads split over ``model``; vocabulary only where it
-    divides it; KV heads where they divide it, else the KV heads rank 0's
-    query heads read (it projects only those). Chunked causal attention: query block i
-    reads the first (i + 1) * chunk keys."""
+    divides it, else each rank computes the table's gradient for its block
+    of ``d_model`` (``transformer.wgrad_split``); KV heads where they
+    divide it, else the KV heads rank 0's query heads read (it projects
+    only those). Chunked causal attention: query block i reads the first
+    (i + 1) * chunk keys."""
     t = shape.global_batch // data * shape.seq_len  # rank 0's tokens
     d, dh = cfg.d_model, cfg.resolved_head_dim
     heads = cfg.n_heads // model
@@ -86,12 +89,15 @@ def _dense_train_flops(cfg, shape, data=16, model=16):
     else:
         kv = cfg.n_kv_heads
     ff = cfg.d_ff // model
-    vocab = cfg.vocab_size // model if cfg.vocab_size % model == 0 else cfg.vocab_size
     proj = 2 * t * d * (2 * heads * dh + 2 * kv * dh + 3 * ff)
     chunk = cfg.attn_q_chunk
     keys = sum(min(shape.seq_len, (i + 1) * chunk) for i in range(shape.seq_len // chunk))
     attn = 2 * 2 * (shape.global_batch // data) * heads * chunk * keys * dh
-    return cfg.n_layers * (3 * proj + 4 * attn) + 3 * 2 * t * d * vocab
+    if cfg.vocab_size % model == 0:
+        unembed = 3 * 2 * t * d * (cfg.vocab_size // model)
+    else:  # forward and input gradient whole, the table's gradient a block of d
+        unembed = 2 * 2 * t * d * cfg.vocab_size + 2 * t * (d // model) * cfg.vocab_size
+    return cfg.n_layers * (3 * proj + 4 * attn) + unembed
 
 
 def test_argument_bytes_are_rank0_blocks(runs):
