@@ -228,7 +228,8 @@ class ParallelGzipReader(io.RawIOBase):
         CRC running state, and the frontier offsets."""
         if self._eos:
             return
-        res = self._fetcher.get_chunk_at(self._frontier_bit, window=self._window)
+        with _obs_trace.span("reader.chunk_wait"):
+            res = self._fetcher.get_chunk_at(self._frontier_bit, window=self._window)
         fc = self._fetcher.finalize_async(res, self._window, self._frontier_out)
         self._collect(fc)
         self._window = fc.window_out
@@ -250,7 +251,7 @@ class ParallelGzipReader(io.RawIOBase):
         # Span covers lock wait + the one-chunk advance: in a trace of a
         # cold read this is the "frontier wait" row (first-pass work other
         # readers may be doing on our behalf shows up as sibling spans).
-        with _obs_trace.span("reader.frontier_wait", {"pos": pos}) as sp:
+        with _obs_trace.span("reader.frontier_wait"):
             if self._frontier_lock.acquire(blocking=False):
                 self._frontier_acquires += 1
             else:
@@ -261,10 +262,7 @@ class ParallelGzipReader(io.RawIOBase):
                 # slightly stale snapshot, which telemetry tolerates.
                 self._frontier_acquires += 1
                 self._frontier_contended += 1
-                waited = _time.perf_counter() - t0
-                self._frontier_wait_s += waited
-                sp.set_attr("contended", True)
-                sp.set_attr("lock_wait_s", round(waited, 6))
+                self._frontier_wait_s += _time.perf_counter() - t0
             try:
                 if not self._eos and self._serveable_point(pos) is None:
                     self._advance_frontier()
@@ -279,27 +277,28 @@ class ParallelGzipReader(io.RawIOBase):
 
         # -- CRC32 / ISIZE verification at member ends ---------------------
         if self._verify and self._codec.verifies_members:
-            prev = 0
-            for me in res.member_ends:
-                seg = data[prev : me.out_offset]
-                crc = self._fetcher.crc32(seg)
-                self._member_crc = crc32_combine(self._member_crc, crc, int(seg.shape[0]))
-                self._member_len += int(seg.shape[0])
-                if self._member_crc != me.crc32:
-                    raise GzipFooterError(
-                        "CRC32 mismatch at decompressed offset %d"
-                        % (fc.out_start + me.out_offset)
-                    )
-                if (self._member_len & 0xFFFFFFFF) != me.isize:
-                    raise GzipFooterError("ISIZE mismatch")
-                self._member_crc = 0
-                self._member_len = 0
-                prev = me.out_offset
-            tail = data[prev:]
-            if tail.shape[0]:
-                crc = self._fetcher.crc32(tail)
-                self._member_crc = crc32_combine(self._member_crc, crc, int(tail.shape[0]))
-                self._member_len += int(tail.shape[0])
+            with _obs_trace.span("reader.verify"):
+                prev = 0
+                for me in res.member_ends:
+                    seg = data[prev : me.out_offset]
+                    crc = self._fetcher.crc32(seg)
+                    self._member_crc = crc32_combine(self._member_crc, crc, int(seg.shape[0]))
+                    self._member_len += int(seg.shape[0])
+                    if self._member_crc != me.crc32:
+                        raise GzipFooterError(
+                            "CRC32 mismatch at decompressed offset %d"
+                            % (fc.out_start + me.out_offset)
+                        )
+                    if (self._member_len & 0xFFFFFFFF) != me.isize:
+                        raise GzipFooterError("ISIZE mismatch")
+                    self._member_crc = 0
+                    self._member_len = 0
+                    prev = me.out_offset
+                tail = data[prev:]
+                if tail.shape[0]:
+                    crc = self._fetcher.crc32(tail)
+                    self._member_crc = crc32_combine(self._member_crc, crc, int(tail.shape[0]))
+                    self._member_len += int(tail.shape[0])
 
         # -- seek points ----------------------------------------------------
         cuts = self._split_offsets(fc)
@@ -477,7 +476,7 @@ class ParallelGzipReader(io.RawIOBase):
         if _obs_trace.current_context() is None:
             # Root read (direct reader use, no service boundary above): a
             # live span, so frontier/fetch children nest under it.
-            with _obs_trace.span("reader.pread", {"offset": offset, "size": size}):
+            with _obs_trace.span("reader.pread"):
                 return self._read_span(offset, offset + size)
         # Nested under a service boundary that already carries this read's
         # offset/size and ~duration (server.read_range, fleet.pread): the
@@ -494,9 +493,7 @@ class ParallelGzipReader(io.RawIOBase):
             dur = _time.perf_counter() - t0
             if dur >= _NESTED_PREAD_RECORD_S:
                 # record_span feeds the histogram itself.
-                _obs_trace.record_span(
-                    "reader.pread", t0, dur, {"offset": offset, "size": size}
-                )
+                _obs_trace.record_span("reader.pread", t0, dur)
 
     def read(self, size: int = -1) -> bytes:
         data = self._read_span(self._pos, None if size < 0 else self._pos + size)

@@ -362,9 +362,7 @@ class TorchDecodeEngine:
         if self._route_device("replace", symbols.shape[0]):
             try:
                 fut = self.submit_replace(symbols, window)
-                with _obs_trace.timed(
-                    "engine.batch_wait", {"kind": "replace", "symbols": int(symbols.shape[0])}
-                ):
+                with _obs_trace.timed("engine.batch_wait", {"kind": "replace"}):
                     return fut.result()
             except EngineClosedError:
                 pass  # raced shutdown: serve on the CPU like any fallback
@@ -380,7 +378,7 @@ class TorchDecodeEngine:
         if self._route_device("crc", len(data)):
             try:
                 fut = self.submit_crc(data)
-                with _obs_trace.timed("engine.batch_wait", {"kind": "crc", "nbytes": len(data)}):
+                with _obs_trace.timed("engine.batch_wait", {"kind": "crc"}):
                     return fut.result()
             except EngineClosedError:
                 pass
@@ -692,17 +690,18 @@ class TorchDecodeEngine:
 
         def resolve() -> None:
             crcs = wait().numpy().astype(np.uint32)
-            for bi, req in enumerate(reqs):
-                lanes = crcs[bi].reshape(-1)
-                full = fulls[bi]
-                parts = [(int(lanes[s]), seg_len) for s in range(full)]
-                rem = req.nbytes - full * seg_len
-                if rem:
-                    parts.append(
-                        (_zlib.crc32(req.data[full * seg_len :]) & 0xFFFFFFFF, rem)
-                    )
-                if not req.future.done():
-                    req.future.set_result(combine_parts(parts))
+            with _obs_trace.span("engine.crc_fold"):
+                for bi, req in enumerate(reqs):
+                    lanes = crcs[bi].reshape(-1)
+                    full = fulls[bi]
+                    parts = [(int(lanes[s]), seg_len) for s in range(full)]
+                    rem = req.nbytes - full * seg_len
+                    if rem:
+                        parts.append(
+                            (_zlib.crc32(req.data[full * seg_len :]) & 0xFFFFFFFF, rem)
+                        )
+                    if not req.future.done():
+                        req.future.set_result(combine_parts(parts))
 
         return resolve
 

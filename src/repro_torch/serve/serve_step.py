@@ -33,6 +33,7 @@ from ..configs.base import ModelConfig
 from ..distributed import collectives
 from ..distributed.sharding import NamedSharding, P, axis_size, batch_partition, fit_spec, mesh_shape
 from ..models.transformer import ModelContext, gather_kv_heads, own_kv_heads
+from ..obs import trace as _obs_trace
 
 
 def _dp_axes(mesh) -> Tuple[str, ...]:
@@ -134,8 +135,9 @@ def make_serve_steps(model, *args, batch: int, max_len: int, mesh=None, rules=No
 
     @torch.inference_mode()
     def decode_fn(tokens, caches, cache_pos: int):
-        logits, new_caches = model.decode_step(tokens, caches, cache_pos)
-        next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        with _obs_trace.span("serve.decode_step"):
+            logits, new_caches = model.decode_step(tokens, caches, cache_pos)
+            next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_token[:, None], logits, new_caches
 
     return prefill_fn, decode_fn, caches_abstract
@@ -191,13 +193,15 @@ def _mesh_serve_steps(model, mesh, rules, *, batch: int, max_len: int):
     @torch.inference_mode()
     def decode_fn(params, tokens, caches, cache_pos: int):
         del params
-        caches = _map_tree(
-            lambda t, sh, a: sh.shard(t).clone() if tuple(t.shape) == tuple(a.shape) and
-            sh.local_shape(a.shape) != tuple(a.shape) else t, caches, c_shard, caches_abstract)
-        logits, caches = model.decode_step(local_rows(mesh, rows, {"t": tokens})["t"], caches,
-                                           cache_pos, ctx)
-        logits = gathered_logits(logits)
-        next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        with _obs_trace.span("serve.decode_step"):
+            caches = _map_tree(
+                lambda t, sh, a: sh.shard(t).clone() if tuple(t.shape) == tuple(a.shape) and
+                sh.local_shape(a.shape) != tuple(a.shape) else t, caches, c_shard,
+                caches_abstract)
+            logits, caches = model.decode_step(local_rows(mesh, rows, {"t": tokens})["t"],
+                                               caches, cache_pos, ctx)
+            logits = gathered_logits(logits)
+            next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_token[:, None], logits, caches
 
     return prefill_fn, decode_fn, caches_abstract, {"params": p_shard, "caches": c_shard,

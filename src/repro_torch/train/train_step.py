@@ -47,6 +47,7 @@ from ..distributed.sharding import (NamedSharding, P, ShardingRules, axis_index,
 from ..models.layers import (leaf_paths, map_members, members, stack_depth, stack_members,
                              stacked, tree_map_leaves, tree_tensors)
 from ..models.transformer import ModelContext
+from ..obs import trace as _obs_trace
 from .optimizer import AdamWConfig, adamw_update, init_opt_state, sharded_global_norm
 
 
@@ -82,10 +83,12 @@ class TrainStep:
         model.requires_grad_(True)
 
     def _grads(self, flat_params, batch):
-        loss, metrics = (self.model.loss(batch) if self.ctx is None
-                         else self.model.loss(batch, self.ctx))
-        grads = torch.autograd.grad(loss, flat_params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat_params, grads)]
+        with _obs_trace.span("train.forward"):
+            loss, metrics = (self.model.loss(batch) if self.ctx is None
+                             else self.model.loss(batch, self.ctx))
+        with _obs_trace.span("train.backward"):
+            grads = torch.autograd.grad(loss, flat_params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat_params, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def compute_grads(self, params, batch):
@@ -114,13 +117,14 @@ class TrainStep:
         batch = _on(batch, self.model.device)
         loss, metrics, grads = self.compute_grads(params, batch)
         self.grad_devices = {g.device.type for g in tree_tensors(grads)}
-        if self.compress_grads:
-            grads, err = quantize_with_feedback(grads, opt_state["grad_error"])
-        params, new_opt, opt_metrics = adamw_update(
-            self.opt_cfg, params, grads, {k: opt_state[k] for k in ("step", "m", "v")}
-        )
-        if self.compress_grads:
-            new_opt["grad_error"] = err
+        with _obs_trace.span("train.optimizer"):
+            if self.compress_grads:
+                grads, err = quantize_with_feedback(grads, opt_state["grad_error"])
+            params, new_opt, opt_metrics = adamw_update(
+                self.opt_cfg, params, grads, {k: opt_state[k] for k in ("step", "m", "v")}
+            )
+            if self.compress_grads:
+                new_opt["grad_error"] = err
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return params, new_opt, metrics
 
@@ -338,24 +342,25 @@ class ShardedTrainStep(TrainStep):
         # stacked gradient, moments and error state, and of the parameters
         views = lambda tree: {leaf.path: _layers(_get(tree, leaf.path), leaf.depth)  # noqa: E731
                               for leaf in self.leaves}
-        grads_l = _tree_of(views(g_m))
-        if self.compress_grads:
-            every = tuple(mesh_shape(mesh))
-            err_l = views(opt_state["grad_error"])
-            grads_l, err = quantize_with_feedback(
-                grads_l, _tree_of(err_l),
-                reduce_amax=lambda a: collectives.all_reduce_(
-                    a.reshape(1), mesh, *every, op=torch.distributed.ReduceOp.MAX)[0])
-            with torch.no_grad():
-                for path, held in err_l.items():
-                    map_members(lambda dst, src: dst.copy_(src), held, _get(err, path))
-        gnorm = sharded_global_norm([(_get(grads_l, leaf.path), spec_axes(leaf.m_sh.spec))
-                                     for leaf in self.leaves], mesh)
-        blocks = {leaf.path: self._block(leaf, _get(params, leaf.path)) for leaf in self.leaves}
-        state = {"step": opt_state["step"], "m": _tree_of(views(opt_state["m"])),
-                 "v": _tree_of(views(opt_state["v"]))}
-        _, state, opt_metrics = adamw_update(self.opt_cfg, _tree_of(blocks), grads_l, state,
-                                             grad_norm=gnorm)
+        with _obs_trace.span("train.optimizer"):
+            grads_l = _tree_of(views(g_m))
+            if self.compress_grads:
+                every = tuple(mesh_shape(mesh))
+                err_l = views(opt_state["grad_error"])
+                grads_l, err = quantize_with_feedback(
+                    grads_l, _tree_of(err_l),
+                    reduce_amax=lambda a: collectives.all_reduce_(
+                        a.reshape(1), mesh, *every, op=torch.distributed.ReduceOp.MAX)[0])
+                with torch.no_grad():
+                    for path, held in err_l.items():
+                        map_members(lambda dst, src: dst.copy_(src), held, _get(err, path))
+            gnorm = sharded_global_norm([(_get(grads_l, leaf.path), spec_axes(leaf.m_sh.spec))
+                                         for leaf in self.leaves], mesh)
+            blocks = {leaf.path: self._block(leaf, _get(params, leaf.path)) for leaf in self.leaves}
+            state = {"step": opt_state["step"], "m": _tree_of(views(opt_state["m"])),
+                     "v": _tree_of(views(opt_state["v"]))}
+            _, state, opt_metrics = adamw_update(self.opt_cfg, _tree_of(blocks), grads_l, state,
+                                                 grad_norm=gnorm)
         # 5. the blocks gathered back into the parameters
         with torch.no_grad():
             for leaf in self.leaves:
