@@ -233,6 +233,21 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
+def stage2_launches() -> dict:
+    """Launches of the stage-2 kernels since their last reset; ``crc32``
+    counts both forms, ``crc32_fold`` the folding one alone."""
+    from repro_torch.kernels import crc32 as kc
+    from repro_torch.kernels import marker_replace as mr
+
+    return {"marker_replace": mr.launches, "crc32": kc.launches, "crc32_fold": kc.fold_launches}
+
+
+def unlaunched(launches: dict) -> list:
+    """Kernels of a path's launch counts that never launched; ``crc32_fold``
+    is the folding form, already counted in ``crc32``."""
+    return [k for k, n in launches.items() if k != "crc32_fold" and n < 1]
+
+
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median over ``reps`` calls of the time between two CUDA events around
     one call: what a caller pays, host work between launches included."""
@@ -326,7 +341,11 @@ def marker_case(n_tiles: int, n_tables: int, gen, device, pad: bool = False, lau
     return row
 
 
-def crc_case(batch: int, seg_len: int, gen, device, unbatched: bool = False):
+def crc_case(batch: int, seg_len: int, gen, device, unbatched: bool = False,
+             fold: bool = False):
+    """The CRC launch against its plain version and zlib; with ``fold`` the
+    folding launch (``crc32_fold_batched``, every lane of every row folded),
+    whose words are held to zlib's CRC of each whole row as well."""
     import torch
 
     from repro_torch.kernels import crc32 as kc
@@ -335,26 +354,33 @@ def crc_case(batch: int, seg_len: int, gen, device, unbatched: bool = False):
     data = torch.randint(0, 256, (batch, 8, 128, seg_len), generator=gen, device=device,
                          dtype=torch.int32).to(torch.uint8)
     table = make_crc_table().to(device)
+    full = [kc.N_SEGMENTS] * batch
     if unbatched:
         call = lambda: kc.crc32_segments(data[0], table)  # noqa: E731
         plain_call = lambda: kc.crc32_segments_batched_plain(data, table)[0]  # noqa: E731
+    elif fold:
+        call = lambda: kc.crc32_fold_batched(data, table, full)  # noqa: E731
+        plain_call = lambda: kc.crc32_fold_batched_plain(data, table, full)  # noqa: E731
     else:
         call = lambda: kc.crc32_segments_batched(data, table)  # noqa: E731
         plain_call = lambda: kc.crc32_segments_batched_plain(data, table)  # noqa: E731
-    out, plain = call(), plain_call()
+    got, want = call(), plain_call()
     torch.cuda.synchronize()
+    out, plain = (got[0], want[0]) if fold else (got, want)
     err = int((out.to(torch.int64) - plain.to(torch.int64)).abs().max())
-    if not torch.equal(out, plain):
+    if not torch.equal(out, plain) or (fold and not torch.equal(got[1], want[1])):
         raise AssertionError("crc kernel != plain at B=%d seg_len=%d" % (batch, seg_len))
     host = data.view(-1, seg_len)[:4].cpu().numpy()
-    got = out.reshape(-1)[:4].cpu().numpy().astype("uint32")
-    if [zlib.crc32(lane.tobytes()) for lane in host] != [int(x) for x in got]:
+    got_lanes = out.reshape(-1)[:4].cpu().numpy().astype("uint32")
+    if [zlib.crc32(lane.tobytes()) for lane in host] != [int(x) for x in got_lanes]:
         raise AssertionError("crc kernel != zlib at B=%d seg_len=%d" % (batch, seg_len))
+    if fold and int(got[1][0].item()) & 0xFFFFFFFF != zlib.crc32(data[0].cpu().numpy().tobytes()):
+        raise AssertionError("crc fold != zlib at B=%d seg_len=%d" % (batch, seg_len))
     n = data.numel()
-    t_bound, by = bound(n + 1024 + 4 * batch * 1024, 4 * n)
+    t_bound, by = bound(n + 1024 + 4 * batch * 1024 + (4 * batch if fold else 0), 4 * n)
     return {
         "kernel": "crc32", "batch": batch, "seg_len": seg_len, "unbatched": unbatched,
-        "max_abs_err": err,
+        "fold": fold, "max_abs_err": err,
         "kernel_ms": graph_ms(call),
         "call_ms": median_ms(call, 20),
         "plain_ms": median_ms(plain_call, 3, warmup=1),
@@ -482,6 +508,10 @@ def check_kernels(gen, device):
     # the 12.76 MB gzip of the main path (12464).
     for seg_len in (1, 7, 127, 128, 1000, 4097, 12464):
         rows.append(crc_case(1, seg_len, gen, device))
+    # The folding launch the engine makes: the read's shape, a full batch,
+    # and one thread a lane.
+    for batch, seg_len in ((1, 2048), (16, 4096), (16, 7)):
+        rows.append(crc_case(batch, seg_len, gen, device, fold=True))
     return rows
 
 
@@ -563,7 +593,7 @@ def main_path(seed: int, mib: int, workers: int):
         fetcher = r.stats()["fetcher"]
     r_b, secs_b = read_all(bz, corpus, workers, "bgzf")
     r_b.close()
-    launches = {"marker_replace": mr.launches, "crc32": kc.launches}
+    launches = stage2_launches()
     stats = engine.stats()
 
     result = {
@@ -580,7 +610,7 @@ def main_path(seed: int, mib: int, workers: int):
         raise AssertionError("engine did not serve the read: %s" % stats)
     if stats["fallbacks"] != {"replace": 0, "crc": 0}:
         raise AssertionError("engine fell back to the CPU: %s" % stats["fallbacks"])
-    if min(launches.values()) < 1:
+    if unlaunched(launches):
         raise AssertionError("a kernel never launched on the main path: %s" % launches)
     return result, engine, corpus, gz
 
@@ -675,7 +705,7 @@ def ops_path(seed: int, corpus: bytes, gz: bytes):
     replaced = ops.marker_replace(syms, window)
     crcs = [ops.crc32_parallel(b) for b in blobs]
     torch.cuda.synchronize()
-    launches = {"precode_check": pc.launches, "marker_replace": mr.launches, "crc32": kc.launches}
+    launches = dict(stage2_launches(), precode_check=pc.launches)
 
     if set(cands.tolist()) != set(host):
         raise AssertionError("precode_candidates: %d candidates, the host finder %d"
@@ -687,7 +717,7 @@ def ops_path(seed: int, corpus: bytes, gz: bytes):
         raise AssertionError("ops.marker_replace differs from the host path")
     if crcs != [zlib.crc32(b) for b in blobs]:
         raise AssertionError("ops.crc32_parallel differs from zlib")
-    if min(launches.values()) < 1:
+    if unlaunched(launches):
         raise AssertionError("a kernel never launched on the ops path: %s" % launches)
     return {
         "gzip_bytes": len(gz), "offsets": end, "candidates": len(host),
@@ -1124,7 +1154,7 @@ def fleet_path(seed: int, card: str):
             gw.close()
         shutil.rmtree(work, ignore_errors=True)
 
-    launches = {"marker_replace": mr.launches, "crc32": kc.launches}
+    launches = stage2_launches()
     stream_s = t_end - t_start
     return {
         "card": card, "peers": FLEET_PEERS, "corpus_bytes": len(corpus), "gzip_bytes": len(blob),
@@ -1280,7 +1310,7 @@ def pipeline_path(seed: int, card: str):
         "epoch_device_ops": [{"name": k, "ms": ms, "count": cnt} for k, ms, cnt in device_ops],
         "engine": {k: after[k] for k in ("requests", "batches", "dispatches", "fallbacks",
                                          "errors")},
-        "launches": {"marker_replace": mr.launches, "crc32": kc.launches},
+        "launches": stage2_launches(),
     }
 
 
@@ -1587,7 +1617,7 @@ def serve_path(seed: int, card: str):
                 retrieve(tok_host, t)
             torch.cuda.synchronize()
             prof_s = time.perf_counter() - t_prof
-        launches = {"marker_replace": mr.launches, "crc32": kc.launches}
+        launches = stage2_launches()
         device_ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                              for e in prof.key_averages() if e.self_device_time_total > 0),
                             key=lambda e: -e[1])
@@ -1604,7 +1634,7 @@ def serve_path(seed: int, card: str):
     if stats["errors"] or stats["fallbacks"] != {"replace": 0, "crc": 0}:
         raise AssertionError("the server's engine erred or fell back: errors %d, fallbacks %s"
                              % (stats["errors"], stats["fallbacks"]))
-    if min(launches.values()) < 1:
+    if unlaunched(launches):
         raise AssertionError("a kernel never launched on the serve path: %s" % launches)
     if not abstract_ok:
         raise AssertionError("the decode caches differ from make_serve_steps' caches_abstract")
@@ -2087,7 +2117,7 @@ def train_path(seed: int, card: str) -> dict:
         t0 = time.perf_counter()
         run = launch.run(args, log=relay)
         run_s = time.perf_counter() - t0
-        launches = {"marker_replace": mr.launches, "crc32": kc.launches}
+        launches = stage2_launches()
         peak = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
         timed = [s * 1e3 for s in run["step_s"][2:TRAIN_STEPS]]  # steps 3-12
@@ -2132,7 +2162,7 @@ def train_path(seed: int, card: str) -> dict:
         problems.append("a loss is not finite")
     if not on_card:
         problems.append("a parameter, gradient or moment is off the card: %s" % result["devices"])
-    if min(launches.values()) < 1:
+    if unlaunched(launches):
         problems.append("a kernel never launched on the train path: %s" % launches)
     if after["errors"] != before["errors"] or after["fallbacks"] != before["fallbacks"]:
         problems.append("the corpus engine erred or fell back: errors %d, fallbacks %s"
@@ -2346,7 +2376,7 @@ def mesh_path(seed: int, card: str, train: dict) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     after = engine.stats()
-    out["launches"] = {"marker_replace": mr.launches, "crc32": kc.launches}
+    out["launches"] = stage2_launches()
     out["engine"] = {"errors": after["errors"] - before["errors"],
                      "fallbacks_before": before["fallbacks"], "fallbacks": after["fallbacks"]}
     out["seconds"] = time.perf_counter() - t_phase
@@ -2378,7 +2408,7 @@ def mesh_path(seed: int, card: str, train: dict) -> dict:
     if not (sv["params_on_card"] and sv["caches_on_card"] and sv["caches_match_abstract"]):
         problems.append("a served parameter or cache is off the card, or the caches differ "
                         "from caches_abstract")
-    if min(out["launches"].values()) < 1:
+    if unlaunched(out["launches"]):
         problems.append("a kernel never launched on the mesh path: %s" % out["launches"])
     if out["engine"]["errors"] or out["engine"]["fallbacks"] != before["fallbacks"]:
         problems.append("the corpus engine erred or fell back: %s" % out["engine"])
@@ -2905,7 +2935,7 @@ def roofline_path(seed: int, card: str, cell_estimates: list) -> dict:
         mr.reset_launches()
         kc.reset_launches()
         run = launch.run(args, log=relay)
-        launches = {"marker_replace": mr.launches, "crc32": kc.launches}
+        launches = stage2_launches()
         peak = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
     finally:
@@ -2939,7 +2969,7 @@ def roofline_path(seed: int, card: str, cell_estimates: list) -> dict:
     problems = []
     if not all(np.isfinite(run["losses"])):
         problems.append("a loss is not finite: %s" % run["losses"])
-    if min(launches.values()) < 1:
+    if unlaunched(launches):
         problems.append("a kernel never launched on the roofline path: %s" % launches)
     if any(v != ["cuda"] for v in run["devices"].values()):
         problems.append("a parameter, gradient or moment is off the card: %s" % run["devices"])
@@ -3091,7 +3121,7 @@ def routing_path(seed: int, card: str) -> dict:
     rows = tool.sweep("cuda", repeats=committed["repeats"])
     out["sweep"] = {"rows": rows, "crossover": derive_crossover(rows),
                     "seconds": time.perf_counter() - t0,
-                    "launches": {"marker_replace": mr.launches, "crc32": kc.launches}}
+                    "launches": stage2_launches()}
     out["committed"] = {"card": committed["card"]["nvidia_smi"], "commit": committed["commit"],
                         "rows": committed["results"], "crossover": committed["crossover"]}
     want_names = {r["name"] for r in committed["results"]}
@@ -3177,8 +3207,7 @@ def routing_path(seed: int, card: str) -> dict:
         if ex["rc"] != 0:
             problems.append("examples/%s.py --device cuda exited %s: %s"
                             % (name, ex["rc"], ex["tail"][-1500:]))
-    out["launches"] = {"marker_replace": mr.launches, "crc32": kc.launches,
-                       "precode_check": pc.launches}
+    out["launches"] = dict(stage2_launches(), precode_check=pc.launches)
     if min(out["launches"]["marker_replace"], out["launches"]["crc32"]) < 1:
         problems.append("a stage-2 kernel never launched in the phase: %s" % out["launches"])
     out["seconds"] = time.perf_counter() - t_phase
@@ -3273,7 +3302,8 @@ def main() -> int:
     engine.shutdown()
     rep = max((k for k in shapes if k[0] == "replace"), key=shapes.get)
     crc = max((k for k in shapes if k[0] == "crc"), key=shapes.get)
-    at_path = [marker_case(rep[1], rep[2], gen, device), crc_case(crc[1], crc[2], gen, device)]
+    at_path = [marker_case(rep[1], rep[2], gen, device),
+               crc_case(crc[1], crc[2], gen, device, fold=True)]
     for row in at_path:
         log(json.dumps(dict(row, at="main path shape")))
 
@@ -3297,8 +3327,8 @@ def main() -> int:
     kc.reset_launches()
     with shared_engine_untouched():
         service = service_path(args.seed, card)
-    service["launches"] = {"marker_replace": mr.launches, "crc32": kc.launches}
-    if min(service["launches"].values()) < 1:
+    service["launches"] = stage2_launches()
+    if unlaunched(service["launches"]):
         raise AssertionError("a kernel never launched on the service path: %s"
                              % service["launches"])
     log("service path [%s]: %d tenants over HTTP, 2 archives of %d bytes (gzip %s), first "
@@ -3320,12 +3350,12 @@ def main() -> int:
 
     with shared_engine_untouched():
         fleet = fleet_path(args.seed, card)
-    if min(fleet["launches"].values()) < 1:
+    if unlaunched(fleet["launches"]):
         raise AssertionError("a kernel never launched on the fleet path: %s" % fleet["launches"])
     log_fleet(fleet, card)
 
     pipeline = pipeline_path(args.seed, card)
-    if min(pipeline["launches"].values()) < 1:
+    if unlaunched(pipeline["launches"]):
         raise AssertionError("a kernel never launched on the pipeline path: %s"
                              % pipeline["launches"])
     log_pipeline(pipeline, card)

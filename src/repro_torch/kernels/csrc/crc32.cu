@@ -4,8 +4,10 @@
 // ::crc32_segments): for each of the B x 1024 lanes of a (B, 8, 128, seg_len)
 // uint8 array, the reflected CRC-32 (poly 0xEDB88320, init and xorout
 // 0xFFFFFFFF) of its seg_len bytes, byte at a time through a 256-entry
-// table. The host merges lane CRCs with the GF(2) combine (core/crc32.py).
-// The reference took the bytes as int32; here they are uint8, 4x fewer bytes.
+// table. The reference took the bytes as int32; here they are uint8, 4x
+// fewer bytes. A folding launch also writes each request's CRC over its
+// first full[b] lanes (see "Fold" below), which the reference's host merged
+// lane by lane with the GF(2) combine (core/crc32.py).
 //
 // Bound: bytes, 1 B read per input byte. The least time is B * 1024 *
 // seg_len bytes over 3.35 TB/s. What bounds this kernel instead is the
@@ -36,9 +38,24 @@
 // kernel cost 1.7 us more than that walk at 32 bytes, and the walk grows by
 // about 37 ns a byte on this card, so the two cross near 80 bytes; from 128
 // bytes on every piece is at least a whole word.
+//
+// Fold: a request's first full lanes are consecutive pieces of one stream,
+// so by the same identity its CRC is the XOR over s < full of crc_s
+// shifted by (full - 1 - s) * seg_len bytes. The shift is a product of the
+// operators for seg_len * 2^j bytes, one for each set bit j of
+// full - 1 - s (10 bits: 1024 lanes); the host builds the 10 operators
+// and passes them, with each request's full, as kernel parameters. Each
+// lane's share is XOR-ed within its block (all of a block's lanes belong to
+// one request) and then, once a block or a warp, atomically into the
+// request's word, which the launch zeroes first on its stream. XOR
+// commutes, so the word does not depend on the order blocks finish in.
+// Lanes at or past full add nothing: the engine packs only the first full
+// and leaves stale bytes in the rest.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -48,10 +65,45 @@ constexpr int ROUND_WORDS = 16;      // words of each piece staged per round
 constexpr int PIECE_STRIDE = ROUND_WORDS + 1;  // odd: conflict-free reads
 constexpr int LEVELS = 5;                      // log2(32 pieces)
 
+constexpr int N_SEGMENTS = 8 * 128;  // lanes a request
+constexpr int FOLD_LEVELS = 10;      // log2(N_SEGMENTS)
+constexpr int MAX_FOLD_BATCH = 64;   // requests a folding launch (crc32.py)
+
 struct CombineOps {
   uint32_t shift[LEVELS][32];  // row b: the image of register bit b
   uint32_t init_shift;         // shift_seg_len(0xFFFFFFFF)
 };
+
+struct FoldOps {
+  uint32_t level[FOLD_LEVELS][32];  // shift by seg_len * 2^j bytes
+  int32_t full[MAX_FOLD_BATCH];     // lanes folded, a request
+};
+static_assert(sizeof(FoldOps) == 4 * (FOLD_LEVELS * 32 + MAX_FOLD_BATCH), "FoldOps layout");
+
+struct NoFold {};
+template <bool FOLD>
+using FoldArg = std::conditional_t<FOLD, FoldOps, NoFold>;
+
+// rows x over GF(2): the XOR of the rows of x's set bits, in four partial
+// sums (a chain of 8 dependent XORs, not 32).
+__device__ __forceinline__ uint32_t gf2_apply(const uint32_t* rows, uint32_t x) {
+  uint32_t part[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int b = 0; b < 32; ++b) part[b & 3] ^= rows[b] & (0u - ((x >> b) & 1u));
+  return (part[0] ^ part[1]) ^ (part[2] ^ part[3]);
+}
+
+// Lane `lane`'s share of its request's CRC: its CRC shifted past the lanes
+// after it in the request, or 0 for a lane at or past full.
+__device__ __forceinline__ uint32_t fold_share(const FoldOps& f, int64_t lane, uint32_t crc) {
+  const int m = f.full[lane / N_SEGMENTS] - 1 - static_cast<int>(lane % N_SEGMENTS);
+  if (m < 0) return 0u;
+#pragma unroll
+  for (int j = 0; j < FOLD_LEVELS; ++j) {
+    if ((m >> j) & 1) crc = gf2_apply(f.level[j], crc);
+  }
+  return crc;
+}
 
 __device__ __forceinline__ uint32_t step_word(const uint32_t* lut, uint32_t crc, uint32_t w) {
 #pragma unroll
@@ -62,29 +114,42 @@ __device__ __forceinline__ uint32_t step_word(const uint32_t* lut, uint32_t crc,
 }
 
 // One thread per lane (seg_len below SPLIT_MIN_SEG_LEN).
+template <bool FOLD>
 __global__ void __launch_bounds__(THREADS)
 crc32_lanes_kernel(const uint8_t* __restrict__ data, const uint32_t* __restrict__ table,
-                   uint32_t* __restrict__ out, int64_t n_lanes, int64_t seg_len) {
+                   uint32_t* __restrict__ out, uint32_t* __restrict__ folded, int64_t n_lanes,
+                   int64_t seg_len, const __grid_constant__ FoldArg<FOLD> fold) {
   __shared__ uint32_t lut[256];
   for (int i = threadIdx.x; i < 256; i += THREADS) lut[i] = table[i];
   __syncthreads();
   const int64_t lane = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (lane >= n_lanes) return;
-  const uint8_t* p = data + lane * seg_len;
+  const bool live = lane < n_lanes;
   uint32_t crc = 0xFFFFFFFFu;
-  if ((seg_len & 15) == 0) {
-    const uint4* q = reinterpret_cast<const uint4*>(p);
-    for (int64_t i = 0; i < seg_len / 16; ++i) {
-      const uint4 v = __ldg(q + i);
-      crc = step_word(lut, crc, v.x);
-      crc = step_word(lut, crc, v.y);
-      crc = step_word(lut, crc, v.z);
-      crc = step_word(lut, crc, v.w);
+  if (live) {
+    const uint8_t* p = data + lane * seg_len;
+    if ((seg_len & 15) == 0) {
+      const uint4* q = reinterpret_cast<const uint4*>(p);
+      for (int64_t i = 0; i < seg_len / 16; ++i) {
+        const uint4 v = __ldg(q + i);
+        crc = step_word(lut, crc, v.x);
+        crc = step_word(lut, crc, v.y);
+        crc = step_word(lut, crc, v.z);
+        crc = step_word(lut, crc, v.w);
+      }
+    } else {
+      for (int64_t i = 0; i < seg_len; ++i) crc = (crc >> 8) ^ lut[(crc ^ p[i]) & 0xFFu];
     }
-  } else {
-    for (int64_t i = 0; i < seg_len; ++i) crc = (crc >> 8) ^ lut[(crc ^ p[i]) & 0xFFu];
+    out[lane] = ~crc;
   }
-  out[lane] = ~crc;
+  if constexpr (FOLD) {
+    // A block's THREADS lanes belong to one request: one atomic a warp.
+    uint32_t x = live ? fold_share(fold, lane, ~crc) : 0u;
+#pragma unroll
+    for (int d = 16; d; d >>= 1) x ^= __shfl_xor_sync(0xFFFFFFFFu, x, d);
+    if ((threadIdx.x & 31) == 0 && x) {
+      atomicXor(folded + (int64_t)blockIdx.x * THREADS / N_SEGMENTS, x);
+    }
+  }
 }
 
 // Word of the lane at byte offset v (a multiple of 4 when ALIGNED); bytes
@@ -102,11 +167,12 @@ __device__ __forceinline__ uint32_t load_word(const uint8_t* __restrict__ p, int
 
 // One warp per lane. ALIGNED: seg_len % 4 == 0, so every lane starts on a
 // word and the padding is whole words.
-template <bool ALIGNED>
+template <bool ALIGNED, bool FOLD>
 __global__ void __launch_bounds__(THREADS)
 crc32_split_kernel(const uint8_t* __restrict__ data, const uint32_t* __restrict__ table,
-                   uint32_t* __restrict__ out, int64_t n_lanes, int64_t seg_len,
-                   int piece_words, const __grid_constant__ CombineOps ops) {
+                   uint32_t* __restrict__ out, uint32_t* __restrict__ folded, int64_t n_lanes,
+                   int64_t seg_len, int piece_words, const __grid_constant__ CombineOps ops,
+                   const __grid_constant__ FoldArg<FOLD> fold) {
   __shared__ uint32_t lut[256];
   __shared__ uint32_t stage[WARPS][32 * PIECE_STRIDE];
   const int warp = threadIdx.x >> 5;
@@ -147,18 +213,50 @@ crc32_split_kernel(const uint8_t* __restrict__ data, const uint32_t* __restrict_
     for (int j = 0; j < n; ++j) reg = step_word(lut, reg, buf[k * PIECE_STRIDE + j]);
     __syncwarp();
   }
-  if (!live) return;  // the whole warp leaves together
+  uint32_t crc = 0;
+  if (live) {  // the whole warp takes the same branch
 #pragma unroll
-  for (int l = 0; l < LEVELS; ++l) {
-    const uint32_t right = __shfl_down_sync(0xFFFFFFFFu, reg, 1 << l);
-    // Four partial sums: a chain of 8 dependent XORs, not 32.
-    uint32_t part[4] = {0, 0, 0, 0};
-#pragma unroll
-    for (int b = 0; b < 32; ++b) part[b & 3] ^= ops.shift[l][b] & (0u - ((reg >> b) & 1u));
-    const uint32_t shifted = (part[0] ^ part[1]) ^ (part[2] ^ part[3]);
-    if ((k & ((2 << l) - 1)) == 0) reg = shifted ^ right;
+    for (int l = 0; l < LEVELS; ++l) {
+      const uint32_t right = __shfl_down_sync(0xFFFFFFFFu, reg, 1 << l);
+      const uint32_t shifted = gf2_apply(ops.shift[l], reg);
+      if ((k & ((2 << l) - 1)) == 0) reg = shifted ^ right;
+    }
+    crc = ~(reg ^ ops.init_shift);
+    if (k == 0) out[lane] = crc;
   }
-  if (k == 0) out[lane] = ~(reg ^ ops.init_shift);
+  if constexpr (FOLD) {
+    // A block's WARPS lanes belong to one request: one atomic a block.
+    __shared__ uint32_t share[WARPS];
+    if (k == 0) share[warp] = live ? fold_share(fold, lane, crc) : 0u;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) x ^= share[w];
+      if (x) atomicXor(folded + (int64_t)blockIdx.x * WARPS / N_SEGMENTS, x);
+    }
+  }
+}
+
+template <bool FOLD>
+void launch(const uint8_t* in, const uint32_t* lut, uint32_t* dst, uint32_t* folded,
+            long long n_lanes, long long seg_len, int piece_words, const void* ops,
+            const FoldArg<FOLD>& fold, cudaStream_t s) {
+  if (piece_words == 0) {
+    const long long blocks = (n_lanes + THREADS - 1) / THREADS;
+    crc32_lanes_kernel<FOLD><<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
+        in, lut, dst, folded, n_lanes, seg_len, fold);
+    return;
+  }
+  const CombineOps params = *static_cast<const CombineOps*>(ops);
+  const unsigned blocks = static_cast<unsigned>((n_lanes + WARPS - 1) / WARPS);
+  if (seg_len % 4 == 0) {
+    crc32_split_kernel<true, FOLD><<<blocks, THREADS, 0, s>>>(in, lut, dst, folded, n_lanes,
+                                                              seg_len, piece_words, params, fold);
+  } else {
+    crc32_split_kernel<false, FOLD><<<blocks, THREADS, 0, s>>>(in, lut, dst, folded, n_lanes,
+                                                               seg_len, piece_words, params, fold);
+  }
 }
 
 }  // namespace
@@ -167,30 +265,28 @@ crc32_split_kernel(const uint8_t* __restrict__ data, const uint32_t* __restrict_
 // out (n_lanes,) uint32; all on the device and contiguous. piece_words is
 // ceil(seg_len / 128), or 0 for one thread per lane; ops (host memory) holds
 // 5 x 32 operator rows then shift_seg_len(~0), as crc32.py builds them, and
-// is read only when piece_words > 0. Launches on `stream` and returns
-// cudaGetLastError().
+// is read only when piece_words > 0. With folded (device, n_lanes / 1024
+// uint32) the launch also folds: fold (host memory) holds 10 x 32 operator
+// rows then MAX_FOLD_BATCH int32 fulls, and n_lanes is a multiple of 1024,
+// at most MAX_FOLD_BATCH requests. Launches on `stream` and returns the
+// first CUDA error.
 extern "C" int crc32_launch(const void* data, const void* table, void* out, long long n_lanes,
-                            long long seg_len, int piece_words, const void* ops,
-                            void* stream) {
+                            long long seg_len, int piece_words, const void* ops, void* folded,
+                            const void* fold, void* stream) {
   if (n_lanes > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const uint8_t* in = static_cast<const uint8_t*>(data);
     const uint32_t* lut = static_cast<const uint32_t*>(table);
     uint32_t* dst = static_cast<uint32_t*>(out);
-    if (piece_words == 0) {
-      const long long blocks = (n_lanes + THREADS - 1) / THREADS;
-      crc32_lanes_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(in, lut, dst, n_lanes,
-                                                                          seg_len);
+    if (folded == nullptr) {
+      launch<false>(in, lut, dst, nullptr, n_lanes, seg_len, piece_words, ops, NoFold{}, s);
     } else {
-      const CombineOps params = *static_cast<const CombineOps*>(ops);
-      const unsigned blocks = static_cast<unsigned>((n_lanes + WARPS - 1) / WARPS);
-      if (seg_len % 4 == 0) {
-        crc32_split_kernel<true><<<blocks, THREADS, 0, s>>>(in, lut, dst, n_lanes, seg_len,
-                                                           piece_words, params);
-      } else {
-        crc32_split_kernel<false><<<blocks, THREADS, 0, s>>>(in, lut, dst, n_lanes, seg_len,
-                                                            piece_words, params);
-      }
+      uint32_t* words = static_cast<uint32_t*>(folded);
+      const cudaError_t rc =
+          cudaMemsetAsync(words, 0, sizeof(uint32_t) * (n_lanes / N_SEGMENTS), s);
+      if (rc != cudaSuccess) return static_cast<int>(rc);
+      launch<true>(in, lut, dst, words, n_lanes, seg_len, piece_words, ops,
+                   *static_cast<const FoldOps*>(fold), s);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -5,7 +5,7 @@ two-stage scheme (§2.2) leaves stage 2 — marker resolution and CRC32 —
 data-parallel; a card only pays off when it is fed full batches, so every
 reader submits its marker-resolution and CRC requests here, one dispatcher
 thread packs them into tile batches, launches ``marker_replace_tiles_multi``
-/ ``crc32_segments_batched`` once per batch, and scatters results back to
+/ ``crc32_fold_batched`` once per batch, and scatters results back to
 per-request futures.
 
 Policy kept from the reference: the coalescing window, pow2 bucketing of
@@ -37,6 +37,12 @@ What differs on the card:
     ``non_blocking=True`` on the engine's own stream. Each buffer records a
     CUDA event after its upload and is packed again only once that event
     has completed.
+  * **The CRC fold.** The reference reads back all 1 024 lane CRCs of a
+    request and folds them on the host (``core.crc32.combine_parts``, one
+    ``crc32_combine`` a lane). Here the CRC launch folds each request's
+    packed lanes on the device (``crc32_fold_batched``); the host reads
+    back one word a request and runs zlib over the tail, under ``seg_len``
+    bytes, on from it.
   * **Dispatch errors** fail that batch's futures and count in ``errors``;
     there is no CPU retry.
 """
@@ -56,11 +62,10 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..core.crc32 import combine_parts
 from ..core.markers import replace_markers as _cpu_replace_markers
 from ..obs import trace as _obs_trace
 from . import _build
-from .crc32 import N_SEGMENTS, SEG_COLS, SEG_ROWS, crc32_segments_batched
+from .crc32 import N_SEGMENTS, SEG_COLS, SEG_ROWS, crc32_fold_batched
 from .marker_replace import TILE, TILE_COLS, TILE_ROWS, marker_replace_tiles_multi
 from .ref import TABLE_SIZE, make_crc_table, make_replacement_table
 
@@ -670,7 +675,7 @@ class TorchDecodeEngine:
             ("crc", batch, seg_len), (batch, SEG_ROWS, SEG_COLS, seg_len), torch.uint8
         )
         # No zero fill: only each request's first `full` lanes are packed,
-        # and only their CRCs are read back.
+        # and the kernel folds only those.
         buf = stage.host.numpy()
         fulls: List[int] = []
         for bi, req in enumerate(reqs):
@@ -681,27 +686,22 @@ class TorchDecodeEngine:
                 lanes[:full] = np.frombuffer(
                     req.data, np.uint8, count=full * seg_len
                 ).reshape(full, seg_len)
-        out = crc32_segments_batched(self._upload(stage), self._crc_table)
-        wait = self._readback(out)
+        _, folded = crc32_fold_batched(self._upload(stage), self._crc_table, fulls)
+        wait = self._readback(folded)
         with self._cond:
             self._dispatches += 1
             self._crc_bytes += sum(r.nbytes for r in reqs)
             self._shapes["crc", batch, seg_len] += 1
 
         def resolve() -> None:
-            crcs = wait().numpy().astype(np.uint32)
+            words = wait().numpy().view(np.uint32)
             with _obs_trace.span("engine.crc_fold"):
                 for bi, req in enumerate(reqs):
-                    lanes = crcs[bi].reshape(-1)
-                    full = fulls[bi]
-                    parts = [(int(lanes[s]), seg_len) for s in range(full)]
-                    rem = req.nbytes - full * seg_len
-                    if rem:
-                        parts.append(
-                            (_zlib.crc32(req.data[full * seg_len :]) & 0xFFFFFFFF, rem)
-                        )
+                    # The card folded the first `full` lanes; zlib runs the
+                    # tail (under seg_len bytes) on from that CRC.
+                    crc = _zlib.crc32(req.data[fulls[bi] * seg_len :], int(words[bi]))
                     if not req.future.done():
-                        req.future.set_result(combine_parts(parts))
+                        req.future.set_result(crc & 0xFFFFFFFF)
 
         return resolve
 

@@ -19,9 +19,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..core.crc32 import combine_parts
 from ._build import resolve_device
-from .crc32 import N_SEGMENTS, SEG_COLS, SEG_ROWS, crc32_segments
+from .crc32 import N_SEGMENTS, SEG_COLS, SEG_ROWS, crc32_fold_batched
 from .marker_replace import TILE, TILE_COLS, TILE_ROWS, marker_replace_tiles
 from .precode_check import HALO, precode_check_packed
 from .ref import make_crc_table, make_replacement_table
@@ -92,7 +91,7 @@ def precode_candidates(data: bytes, start_bit: int = 0, end_bit: Optional[int] =
 # -- crc32 --------------------------------------------------------------------
 
 def crc32_parallel(data: bytes, *, device="cuda") -> int:
-    """CRC32 of ``data`` via N_SEGMENTS parallel lanes + GF(2) combine."""
+    """CRC32 of ``data`` via N_SEGMENTS parallel lanes, folded in the launch."""
     dev = resolve_device(device)
     n = len(data)
     if n == 0:
@@ -104,15 +103,8 @@ def crc32_parallel(data: bytes, *, device="cuda") -> int:
     table = _CRC_TABLES.get(dev)
     if table is None:
         table = _CRC_TABLES[dev] = make_crc_table().to(dev)
-    crcs = crc32_segments(tiles, table).cpu().numpy().view(np.uint32).reshape(-1)
-    # Zero padding inside a segment changes its CRC, so the last (partial)
-    # segment is recomputed on the host with its true length.
-    parts = []
-    full_segments = n // seg_len
-    for s in range(full_segments):
-        parts.append((int(crcs[s]), seg_len))
-    rem = n - full_segments * seg_len
-    if rem:
-        tail = data[full_segments * seg_len :]
-        parts.append((_zlib.crc32(tail) & 0xFFFFFFFF, rem))
-    return combine_parts(parts)
+    # Zero padding inside a segment changes its CRC, so only the full
+    # segments are folded and the partial one runs on from their CRC.
+    full = n // seg_len
+    _, folded = crc32_fold_batched(tiles[None], table, [full])
+    return _zlib.crc32(data[full * seg_len :], int(folded[0]) & 0xFFFFFFFF)

@@ -71,7 +71,7 @@ def test_marker_single_table_kernel(cuda, rng, n_tiles):
     assert torch.equal(out, tmr.marker_replace_tiles(syms, table))
 
 
-@pytest.mark.parametrize("batch,seg_len", [
+CRC_GRID = [
     (1, 1), (1, 7), (8, 4096), (16, 64),
     # either side of the split threshold (tcrc.SPLIT_MIN_SEG_LEN = 128)
     (1, 127), (1, 128), (16, 127), (16, 128),
@@ -79,7 +79,10 @@ def test_marker_single_table_kernel(cuda, rng, n_tiles):
     # ops.crc32_parallel over a 12.76 MB gzip
     (1, 2048), (16, 2048), (1, 1000), (16, 1000), (1, 4097), (16, 4097),
     (1, 12464), (16, 12464),
-])
+]
+
+
+@pytest.mark.parametrize("batch,seg_len", CRC_GRID)
 def test_crc_kernel_matches_plain_and_zlib(cuda, rng, batch, seg_len):
     host = rng.integers(0, 256, (batch, 8, 128, seg_len), dtype=np.uint8)
     data = torch.from_numpy(host).to(cuda)
@@ -92,6 +95,66 @@ def test_crc_kernel_matches_plain_and_zlib(cuda, rng, batch, seg_len):
     lanes = host.reshape(-1, seg_len)
     got = out.cpu().numpy().reshape(-1).astype(np.uint32)
     assert got.tolist() == [zlib.crc32(lane.tobytes()) for lane in lanes]
+
+
+@pytest.mark.parametrize("batch,seg_len", CRC_GRID)
+def test_crc_fold_kernel_matches_plain_and_zlib(cuda, rng, batch, seg_len):
+    """The folding launch: each request's word is the plain fold's and
+    zlib's CRC of its first ``full`` lanes (lanes past it hold random
+    bytes), rows past ``full`` fold to 0, and the per-lane output is the
+    non-folding launch's, bit for bit."""
+    host = rng.integers(0, 256, (batch, 8, 128, seg_len), dtype=np.uint8)
+    data = torch.from_numpy(host).to(cuda)
+    table = tref.make_crc_table().to(cuda)
+    full = [(0, 1, 2, 683, 1024, 1023, 512, 341)[i % 8] for i in range(max(1, batch - 1))]
+    if batch == 1:
+        full = [int(rng.integers(1, 1025))]
+    before, fold_before, folds = tcrc.launches, tcrc.fold_launches, tcrc.folded_requests
+    lanes, folded = tcrc.crc32_fold_batched(data, table, full)
+    torch.cuda.synchronize()
+    assert tcrc.launches == before + 1 and tcrc.fold_launches == fold_before + 1
+    assert tcrc.folded_requests == folds + len(full)
+    assert torch.equal(lanes, tcrc.crc32_segments_batched(data, table))
+    assert tcrc.launches == before + 2 and tcrc.fold_launches == fold_before + 1
+    plain_lanes, plain_folded = tcrc.crc32_fold_batched_plain(data, table, full)
+    assert torch.equal(lanes, plain_lanes) and torch.equal(folded, plain_folded)
+    want = [zlib.crc32(host[b].reshape(-1)[: f * seg_len].tobytes()) for b, f in enumerate(full)]
+    want += [0] * (batch - len(full))
+    assert folded.cpu().numpy().astype(np.uint32).tolist() == want
+
+
+def test_crc_fold_kernel_slices_a_large_batch(cuda, rng):
+    """More rows than one launch's parameters hold: one launch a slice."""
+    batch = tcrc.MAX_FOLD_BATCH + 3
+    host = rng.integers(0, 256, (batch, 8, 128, 16), dtype=np.uint8)
+    full = rng.integers(0, 1025, batch).tolist()
+    before, fold_before = tcrc.launches, tcrc.fold_launches
+    _, folded = tcrc.crc32_fold_batched(torch.from_numpy(host).to(cuda),
+                                        tref.make_crc_table().to(cuda), full)
+    assert tcrc.launches == before + 2 and tcrc.fold_launches == fold_before + 2
+    want = [zlib.crc32(host[b].reshape(-1)[: f * 16].tobytes()) for b, f in enumerate(full)]
+    assert folded.cpu().numpy().astype(np.uint32).tolist() == want
+
+
+#: About the decompressed bytes of the read cell's chunks (1 MiB of gzip -6
+#: of base64 gives about 1.4 MB), a shorter last chunk, a request of 683
+#: whole lanes of 2 KiB and one byte more, 1 MiB and 4 MiB.
+READ_CHUNK_SIZES = (1_398_101, 1_416_342, 683 * 2048, 683 * 2048 + 1, 1 << 20, 301_777, 4 << 20)
+
+
+def test_engine_fold_matches_zlib_at_read_chunk_sizes(cuda, rng):
+    tcrc.reset_launches()
+    with TorchDecodeEngine() as eng:
+        for n in READ_CHUNK_SIZES:
+            blob = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+            assert eng.crc32(blob) == zlib.crc32(blob), n
+        # Three at once: one batch of three requests.
+        blobs = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in READ_CHUNK_SIZES[:3]]
+        futs = [eng.submit_crc(b) for b in blobs]
+        assert [f.result(timeout=60) for f in futs] == [zlib.crc32(b) for b in blobs]
+        assert eng.stats()["errors"] == 0
+    assert tcrc.folded_requests == len(READ_CHUNK_SIZES) + 3
+    assert tcrc.launches == tcrc.fold_launches >= 1
 
 
 def test_crc_unbatched_kernel(cuda, rng):
@@ -107,10 +170,13 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
 
     monkeypatch.setattr(tmr, "marker_replace_tiles_multi_plain", refuse)
     monkeypatch.setattr(tcrc, "crc32_segments_batched_plain", refuse)
+    monkeypatch.setattr(tcrc, "crc32_fold_batched_plain", refuse)
     syms = torch.zeros((1, 8, 1024), dtype=torch.uint16, device=cuda)
     tmr.marker_replace_tiles(syms, torch.zeros(TABLE_SIZE, dtype=torch.uint8, device=cuda))
     tcrc.crc32_segments(torch.zeros((8, 128, 16), dtype=torch.uint8, device=cuda),
                         tref.make_crc_table().to(cuda))
+    tcrc.crc32_fold_batched(torch.zeros((1, 8, 128, 16), dtype=torch.uint8, device=cuda),
+                            tref.make_crc_table().to(cuda), [3])
     torch.cuda.synchronize()
 
 

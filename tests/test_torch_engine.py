@@ -190,6 +190,53 @@ def test_crc_batch_of_mixed_sizes(rng):
             assert fut.result(timeout=60) == (zlib.crc32(blob) & 0xFFFFFFFF)
 
 
+#: Bytes of one request: 1 B, a lane's worth, a read chunk (683 lanes of
+#: 2 KiB and a tail), and the engine's largest at seg_len 4096.
+FOLD_SIZES = (1, 1000, 4096, 683 * 2048 + 1500, 3 << 20, 4 << 20)
+
+
+def test_crc_fold_mixed_batch_one_dispatch(rng, monkeypatch):
+    """Requests of 1 B to 4 MiB in one batch equal zlib; the engine folds
+    each on the device path, never with ``combine_parts``, and calls
+    ``crc32_combine`` at most once a request."""
+    from repro_torch.core import crc32 as core_crc
+    from repro_torch.kernels import engine as teng
+
+    calls = {"combine_parts": 0, "crc32_combine": 0}
+
+    def counted(name, fn):
+        def wrapper(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapper
+
+    for mod in (core_crc, teng, tcrc):
+        for name in calls:
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, counted(name, getattr(mod, name)))
+    blobs = [make_random(rng, n) for n in FOLD_SIZES]
+    tcrc.reset_launches()
+    with make_engine(max_delay_s=0.5, max_batch_crc_bytes=16 << 20) as eng:
+        futs = [eng.submit_crc(b) for b in blobs]
+        got = [f.result(timeout=120) for f in futs]
+        stats = eng.stats()
+        shapes = eng.dispatch_shapes()
+    assert got == [zlib.crc32(b) & 0xFFFFFFFF for b in blobs]
+    assert stats["batches"] == 1 and stats["errors"] == 0
+    assert shapes == {("crc", 8, 4096): 1}
+    assert tcrc.folded_requests == len(blobs)
+    assert calls["combine_parts"] == 0 and calls["crc32_combine"] <= len(blobs)
+
+
+def test_crc_fold_count_rises_by_one_a_request(rng):
+    tcrc.reset_launches()
+    with make_engine() as eng:
+        for i, n in enumerate((1, 5000, 2048 * 700)):
+            blob = make_random(rng, n)
+            assert eng.crc32(blob) == zlib.crc32(blob) & 0xFFFFFFFF
+            assert tcrc.folded_requests == i + 1
+
+
 # ---------------------------------------------------------------------------
 # routing / crossover
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.crc32 import crc32_combine as jcombine
 from repro.core.markers import replace_markers
 from repro.kernels import crc32 as jcrc
 from repro.kernels.marker_replace import marker_replace_tiles as pallas_tiles
@@ -256,3 +257,69 @@ def test_crc_split_tree_matches_zlib(seg_len):
             for k in range(0, tcrc.PIECES, 2 * span):
                 regs[k] = _apply(rows, regs[k]) ^ regs[k + span]
         assert regs[0] ^ ops[-1] ^ 0xFFFFFFFF == zlib.crc32(lane)
+
+
+# ---------------------------------------------------------------------------
+# crc32: the fold of a request's lane CRCs
+# ---------------------------------------------------------------------------
+
+FOLD_SEG_LENS = [32, 100, 128, 1000, 2048, 4097]
+FOLD_FULLS = [0, 1, 2, 683, 1024]
+
+
+def _check_fold(data, full):
+    lanes, folded = tcrc.crc32_fold_batched(torch.from_numpy(data), tref.make_crc_table(), full)
+    assert lanes.dtype == folded.dtype == torch.int32 and tuple(folded.shape) == data.shape[:1]
+    assert torch.equal(lanes, tcrc.crc32_segments_batched_plain(torch.from_numpy(data),
+                                                                tref.make_crc_table()))
+    seg_len = data.shape[-1]
+    want = [zlib.crc32(data[b].reshape(-1)[: f * seg_len].tobytes()) for b, f in enumerate(full)]
+    want += [0] * (data.shape[0] - len(full))
+    assert lanes_crc(folded).tolist() == want
+
+
+@pytest.mark.parametrize("seg_len", FOLD_SEG_LENS)
+@pytest.mark.parametrize("full", FOLD_FULLS)
+def test_crc_fold_one_request_matches_zlib(seg_len, full):
+    """B = 1: the fold over the first ``full`` lanes is zlib's CRC of their
+    bytes; the lanes past ``full`` hold random bytes that must add nothing."""
+    data = rng_for(12, seg_len, full).integers(
+        0, 256, (1, tcrc.SEG_ROWS, tcrc.SEG_COLS, seg_len), dtype=np.uint8)
+    _check_fold(data, [full])
+
+
+@pytest.mark.parametrize("seg_len", FOLD_SEG_LENS)
+def test_crc_fold_sixteen_requests_match_zlib(seg_len):
+    """B = 16: every ``full`` in one batch, and the last three rows bucket
+    padding (no ``full`` given), which fold to 0."""
+    rng = rng_for(13, seg_len)
+    data = rng.integers(0, 256, (16, tcrc.SEG_ROWS, tcrc.SEG_COLS, seg_len), dtype=np.uint8)
+    full = [FOLD_FULLS[i % len(FOLD_FULLS)] for i in range(13)]
+    _check_fold(data, full)
+
+
+@pytest.mark.parametrize("seg_len", FOLD_SEG_LENS)
+def test_crc_fold_operators_match_combine(seg_len):
+    """Level j shifts a CRC by seg_len * 2**j bytes, as ``crc32_combine``."""
+    rng = rng_for(14, seg_len)
+    ops = tcrc.fold_operators(seg_len)
+    assert len(ops) == tcrc.FOLD_LEVELS * 32 and 1 << tcrc.FOLD_LEVELS == tcrc.N_SEGMENTS
+    for level in range(tcrc.FOLD_LEVELS):
+        reg = int(rng.integers(0, 1 << 32))
+        rows = ops[32 * level : 32 * (level + 1)]
+        assert _apply(rows, reg) == jcombine(reg, 0, seg_len << level)
+
+
+def test_crc_fold_counts_requests_and_rejects_bad_fulls():
+    data = torch.zeros((2, tcrc.SEG_ROWS, tcrc.SEG_COLS, 8), dtype=torch.uint8)
+    tcrc.reset_launches()
+    tcrc.crc32_fold_batched(data, tref.make_crc_table(), [3])
+    tcrc.crc32_fold_batched(data, tref.make_crc_table(), [1, 1024])
+    assert tcrc.folded_requests == 3 and tcrc.launches == tcrc.fold_launches == 0
+    for full in ([1, 1, 1], [1025], [-1]):
+        with pytest.raises(ValueError):
+            tcrc.crc32_fold_batched(data, tref.make_crc_table(), full)
+    assert tcrc.folded_requests == 3
+    tcrc.fold_launches = 1
+    tcrc.reset_launches()
+    assert tcrc.folded_requests == tcrc.fold_launches == 0
