@@ -14,7 +14,7 @@ meta-device tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -96,6 +96,54 @@ class ModelConfig:
         n_moe_layers = self.n_layers - self.first_dense_layers
         inactive = (self.n_experts - self.top_k) * per_expert * n_moe_layers
         return total - inactive
+
+
+# ---------------------------------------------------------------------------
+# settings beyond the JAX package's (DeepSeek-V2's published arithmetic)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class YarnRope:
+    """YaRN's rope scaling (arXiv:2309.00071), as DeepSeek-V2's
+    ``rope_scaling`` states it."""
+
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV2Config(ModelConfig):
+    """A ``ModelConfig`` with DeepSeek-V2's settings that the JAX package
+    lacks. ``q_lora_rank = 0`` with ``use_mla`` is a direct query
+    projection. Routing keeps the top-k softmax weights as they are unless
+    ``norm_topk_prob`` (then they sum to one); DeepSeek's routed scale is
+    taken as 1, Lite's. ``dropless`` runs every token-slot pair through its
+    expert (one device only) in place of the capacity-bounded dispatch."""
+
+    yarn: Optional[YarnRope] = None
+    norm_topk_prob: bool = True
+    dropless: bool = False
+
+
+class ModelSettings(NamedTuple):
+    """What model code reads beyond ``ModelConfig``'s fields; the defaults
+    are what every ``ModelConfig`` computes."""
+
+    yarn: Optional[YarnRope] = None
+    norm_topk_prob: bool = True
+    dropless: bool = False
+
+
+def model_settings(cfg: ModelConfig) -> ModelSettings:
+    """``cfg``'s settings beyond the JAX package's: a ``DeepSeekV2Config``'s
+    own, the neutral ones for any other config."""
+    if isinstance(cfg, DeepSeekV2Config):
+        return ModelSettings(cfg.yarn, cfg.norm_topk_prob, cfg.dropless)
+    return ModelSettings()
 
 
 # ---------------------------------------------------------------------------

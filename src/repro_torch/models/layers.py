@@ -273,11 +273,54 @@ def _rope_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tens
     return torch.from_numpy(np.asarray(rope_frequencies(head_dim, theta), np.float32)).to(device)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature factor, ``0.1 * mscale * ln(factor) + 1``
+    (1 at no scaling)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_frequencies(yarn, head_dim: int, theta: float = 10000.0) -> np.ndarray:
+    """YaRN's inverse frequencies (``configs.base.YarnRope``): RoPE's
+    ``theta^(-2i/dim)`` kept below the correction range, divided by the
+    factor above it, and blended on a linear ramp between, the range's ends
+    ``floor(corr(beta_fast))`` and ``ceil(corr(beta_slow))`` with
+    ``corr(n) = dim ln(L0 / (2 pi n)) / (2 ln theta)`` (DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``). Float64, rounded to float32."""
+    def corr(n: float) -> float:
+        return head_dim * math.log(yarn.original_max_position / (2 * math.pi * n)) / (
+            2 * math.log(theta))
+
+    low = max(math.floor(corr(yarn.beta_fast)), 0)
+    high = min(math.ceil(corr(yarn.beta_slow)), head_dim - 1)
+    i = np.arange(head_dim // 2, dtype=np.float64)
+    ramp = np.clip((i - low) / ((high - low) or 0.001), 0.0, 1.0)
+    base = theta ** (-2.0 * i / head_dim)
+    return (base * (1.0 - ramp) + base / yarn.factor * ramp).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def yarn_rope(yarn, head_dim: int, theta: float, device: torch.device
+              ) -> Tuple[torch.Tensor, float, float]:
+    """(YaRN's inverse frequencies on ``device``, the factor on the rotated
+    values, the factor on the softmax scale): the rotation's is
+    ``m(s, mscale) / m(s, mscale_all_dim)``, the softmax's
+    ``m(s, mscale_all_dim)^2`` (``yarn_mscale``; DeepSeek-V2 applies the
+    latter only where ``mscale_all_dim`` is set)."""
+    freqs = torch.from_numpy(yarn_frequencies(yarn, head_dim, theta)).to(device)
+    rotated = yarn_mscale(yarn.factor, yarn.mscale) / yarn_mscale(yarn.factor, yarn.mscale_all_dim)
+    softmax = yarn_mscale(yarn.factor, yarn.mscale_all_dim) ** 2 if yarn.mscale_all_dim else 1.0
+    return freqs, rotated, softmax
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
+               freqs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Half-rotation RoPE in fp32 (fp64 for an fp64 model). x: [..., S, H,
-    Dh]; positions: [..., S]."""
+    Dh]; positions: [..., S]; ``freqs`` ([Dh/2]) in place of ``theta``'s
+    (YaRN's, ``yarn_rope``)."""
     xf = at_least_fp32(x)
-    freqs = _rope_freqs(x.shape[-1], float(theta), x.device).to(xf.dtype)
+    if freqs is None:
+        freqs = _rope_freqs(x.shape[-1], float(theta), x.device)
+    freqs = freqs.to(xf.dtype)
     angles = positions[..., :, None].to(xf.dtype) * freqs  # [..., S, Dh/2]
     cos = torch.cos(angles)[..., :, None, :]
     sin = torch.sin(angles)[..., :, None, :]

@@ -15,7 +15,9 @@ Sharding (as in the JAX package):
   * shared experts run as a plain TP MLP (``transformer._mlp``).
 
 Routing runs in fp32, per local token shard: softmax, top-k, renormalised
-with a 1e-9 floor, and the Switch/GShard load-balancing aux loss, whose
+with a 1e-9 floor (or, with ``norm_topk_prob`` false, kept as they are:
+DeepSeek-V2-Lite's greedy gate, whose routed scale is 1), and the
+Switch/GShard load-balancing aux loss, whose
 mean over the DP axes is the layer's (the ``pmean``s of the JAX layer; its
 mean over ``model`` averages equal values and is left out). Token-slot
 pairs (token-major: pair ``t * k + j`` is token ``t``'s ``j``-th expert,
@@ -26,18 +28,65 @@ slots per shard; the second, onto the local experts, ``cap2 = max(8,
 ceil(ep * cap1 / E_l * cf))`` slots per expert, assigned in pair order,
 and drops the pairs past it. Capacity dropping therefore depends on the
 mesh, as in the JAX package.
+
+``dropless`` (one device, ``ep = tp = 1``; on a mesh it raises) replaces
+both dispatches: the pairs, stably sorted by expert, run through the
+experts as ``torch._grouped_mm`` over contiguous groups (int32 offsets
+made on the device, so the layer never waits for the host), and come back
+in pair order; no pair is dropped.
+
+The router's part is the span ``moe.route``, the experts' (dispatch or
+sort, products, combine) ``moe.experts``. ``count_pairs`` starts counters
+kept on the device (pairs routed, pairs dropped, the most pairs one expert
+took in one call), added to in place by every one-device call and read
+once by ``pair_counts``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..distributed import collectives
 from ..distributed.sharding import axis_index, axis_size, mesh_shape
+from ..obs import trace as _obs_trace
 from .layers import ParamDef, act_fn, at_least_fp32
+
+#: [pairs routed, pairs dropped, most pairs of one expert in one call],
+#: int64 on the device while counting (``count_pairs``), else None.
+_pair_totals: Optional[torch.Tensor] = None
+
+
+def count_pairs(device) -> None:
+    """Count every one-device ``moe_layer`` call's token-slot pairs on
+    ``device``, from zero."""
+    global _pair_totals
+    _pair_totals = torch.zeros(3, dtype=torch.int64, device=device)
+
+
+def pair_counts() -> Optional[Dict[str, int]]:
+    """The counts since ``count_pairs`` (one read from the device), and
+    stop counting; None where nothing was counting."""
+    global _pair_totals
+    if _pair_totals is None:
+        return None
+    routed, dropped, largest = _pair_totals.tolist()
+    _pair_totals = None
+    return {"routed": routed, "dropped": dropped, "largest_expert": largest}
+
+
+def _count(counts: torch.Tensor, dropped: Optional[torch.Tensor] = None) -> None:
+    """Add one call's pairs: ``counts`` routed to each expert, ``dropped``
+    of them not computed (None: none can be)."""
+    if _pair_totals is None:
+        return
+    _pair_totals[0] += counts.sum()
+    if dropped is not None:
+        _pair_totals[1] += dropped
+    torch.maximum(_pair_totals[2:], counts.max()[None], out=_pair_totals[2:])
 
 
 def moe_defs(
@@ -97,35 +146,90 @@ def moe_layer(
     dp_axes: Tuple[str, ...] = ("data",),
     ep_axis: str = "data",
     tp_axis: str = "model",
+    norm_topk_prob: bool = True,
+    dropless: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed experts. Returns (y, aux_loss)."""
     n_experts = params["router"].shape[-1]
     ep, tp = axis_size(mesh, ep_axis), axis_size(mesh, tp_axis)
+    if dropless and ep * tp > 1:
+        raise ValueError("dropless experts run on one device (ep = tp = 1), not ep %d x tp %d"
+                         % (ep, tp))
     assert n_experts % ep == 0, (n_experts, ep)
-    e_local = n_experts // ep
     batch_axes = tuple(a for a in dp_axes if a in mesh_shape(mesh))
     B, S, D = x.shape
     T = B * S
     xf = x.reshape(T, D)
 
     # ---- routing (computed redundantly per model shard; cheap) -------------
-    logits = at_least_fp32(xf) @ params["router"]
-    probs = torch.softmax(logits, dim=-1)
-    w_topk, idx_topk = torch.topk(probs, top_k, dim=-1)  # [T, k]
-    w_topk = w_topk / torch.clamp(w_topk.sum(-1, keepdim=True), min=1e-9)
+    with _obs_trace.span("moe.route"):
+        logits = at_least_fp32(xf) @ params["router"]
+        probs = torch.softmax(logits, dim=-1)
+        w_topk, idx_topk = torch.topk(probs, top_k, dim=-1)  # [T, k]
+        if norm_topk_prob:
+            w_topk = w_topk / torch.clamp(w_topk.sum(-1, keepdim=True), min=1e-9)
 
-    # load-balance aux loss (Switch/GShard form)
-    me = probs.mean(dim=0)
     # The count per expert at a static shape (bincount's output size depends
     # on the data, which fake tensors cannot give).
     flat_idx = idx_topk.reshape(-1)
-    ce = torch.zeros(n_experts, dtype=torch.int64, device=x.device).index_add_(
-        0, flat_idx, torch.ones_like(flat_idx)).float()
-    ce = ce / torch.clamp(ce.sum(), min=1.0)
-    aux = n_experts * torch.sum(me * ce)
+    counts = torch.zeros(n_experts, dtype=torch.int64, device=x.device).index_add_(
+        0, flat_idx, torch.ones_like(flat_idx))
+    if dropless and not torch.is_grad_enabled():
+        # the aux loss only trains the router: a server's step skips it
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:  # load-balance aux loss (Switch/GShard form)
+        me = probs.mean(dim=0)
+        ce = counts.float()
+        ce = ce / torch.clamp(ce.sum(), min=1.0)
+        aux = n_experts * torch.sum(me * ce)
+    with _obs_trace.span("moe.experts"):
+        if dropless:
+            y = _dropless(params, xf, flat_idx, counts, w_topk.reshape(-1), top_k, activation)
+        else:
+            y = _capacity(params, xf, idx_topk, w_topk, counts, capacity_factor=capacity_factor,
+                          activation=activation, mesh=mesh, ep_axis=ep_axis, tp_axis=tp_axis)
+    aux = collectives.pmean(aux, mesh, *batch_axes)
+    if ep > 1 and ep_axis not in batch_axes:
+        aux = collectives.pmean(aux, mesh, ep_axis)
+    return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def _dropless(params, xf: torch.Tensor, flat_idx: torch.Tensor, counts: torch.Tensor,
+              pair_w: torch.Tensor, top_k: int, activation: str) -> torch.Tensor:
+    """Every token-slot pair through its expert on one device: the pairs
+    stably sorted by expert (``counts`` [E] of them each), the gate, up and
+    down products as ``torch._grouped_mm`` over the experts' contiguous
+    groups (int32 end offsets), each pair's output put back in pair order,
+    and each token's ``top_k`` outputs summed by their weights in one
+    batched product (fp32 accumulation). Every pair is a row of the grouped
+    products, so none is counted dropped."""
+    T, D = xf.shape
+    order = torch.argsort(flat_idx, stable=True)
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)
+    xs = xf[order // top_k]  # [P, D], grouped by expert
+    a = F.silu if activation == "silu" else act_fn(activation)  # one kernel for silu
+    gate = torch._grouped_mm(xs, params["w_gate"], offs=offs)
+    up = torch._grouped_mm(xs, params["w_up"], offs=offs)
+    ys = torch._grouped_mm(a(gate) * up, params["w_down"], offs=offs)
+    _count(counts)
+    pair_out = torch.empty_like(ys).index_copy_(0, order, ys).view(T, top_k, D)
+    return torch.bmm(pair_w.view(T, 1, top_k).to(ys.dtype), pair_out).view(T, D)
+
+
+def _capacity(params, xf: torch.Tensor, idx_topk: torch.Tensor, w_topk: torch.Tensor,
+              counts: torch.Tensor, *, capacity_factor: float, activation: str, mesh,
+              ep_axis: str, tp_axis: str) -> torch.Tensor:
+    """The JAX layer's two capacity-bounded dispatches, the experts'
+    batched products and the inverse path: [T, D], summed over the model
+    shards."""
+    n_experts = params["router"].shape[-1]
+    ep, tp = axis_size(mesh, ep_axis), axis_size(mesh, tp_axis)
+    e_local = n_experts // ep
+    T, D = xf.shape
+    top_k = idx_topk.shape[1]
 
     # ---- token-slot pairs, token-major, split over the model axis -----------
-    pair_token = torch.arange(T, device=x.device).repeat_interleave(top_k)
+    pair_token = torch.arange(T, device=xf.device).repeat_interleave(top_k)
     pair_expert = idx_topk.reshape(-1)
     pair_w = w_topk.reshape(-1)
     n_pairs = T * top_k
@@ -176,18 +280,16 @@ def moe_layer(
     pair_out = pair_out * pair_w[:, None].to(pair_out.dtype)
     pair_out = torch.where(valid1[:, None], pair_out, 0)
 
+    if ep * tp == 1:
+        _count(counts, counts.sum() - valid2.sum())
     # combine the pairs back onto their tokens, in pair order; then sum over
     # the model shards
     if tp > 1:
-        y = torch.zeros((T, D), dtype=pair_out.dtype, device=x.device).index_add(
+        y = torch.zeros((T, D), dtype=pair_out.dtype, device=xf.device).index_add(
             0, pair_token, pair_out)
-        y = collectives.psum(y, mesh, tp_axis)
-    else:
-        pair_out = pair_out.reshape(T, top_k, D)
-        y = torch.zeros((T, D), dtype=pair_out.dtype, device=x.device)
-        for j in range(top_k):
-            y = y + pair_out[:, j]
-    aux = collectives.pmean(aux, mesh, *batch_axes)
-    if ep > 1 and ep_axis not in batch_axes:
-        aux = collectives.pmean(aux, mesh, ep_axis)
-    return y.reshape(B, S, D).to(x.dtype), aux
+        return collectives.psum(y, mesh, tp_axis)
+    pair_out = pair_out.reshape(T, top_k, D)
+    y = torch.zeros((T, D), dtype=pair_out.dtype, device=xf.device)
+    for j in range(top_k):
+        y = y + pair_out[:, j]
+    return y

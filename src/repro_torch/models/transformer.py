@@ -41,9 +41,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, model_settings
 from ..distributed import collectives
 from ..distributed.sharding import ShardingRules, axis_index, axis_size, constrain, mesh_shape
+from ..obs import trace as _obs_trace
 from .layers import (
     ParamDef,
     apply_rope,
@@ -57,6 +58,7 @@ from .layers import (
     rms_norm,
     stack_defs,
     tree_map,
+    yarn_rope,
 )
 from .moe import moe_defs, moe_layer
 from .ssm import init_ssm_state, selective_ssm, ssm_defs
@@ -108,10 +110,16 @@ def _with(p, **replaced) -> Dict[str, Any]:
 def _attn_defs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.use_mla:
         qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-        return {
-            "w_dq": ParamDef((cfg.d_model, cfg.q_lora_rank), ("embed", "qk_lora")),
-            "q_norm": ParamDef((cfg.q_lora_rank,), ("qk_lora",), init="zeros"),
-            "w_uq": ParamDef((cfg.q_lora_rank, cfg.n_heads, qk_dim), ("qk_lora", "heads", None)),
+        if cfg.q_lora_rank:
+            query = {
+                "w_dq": ParamDef((cfg.d_model, cfg.q_lora_rank), ("embed", "qk_lora")),
+                "q_norm": ParamDef((cfg.q_lora_rank,), ("qk_lora",), init="zeros"),
+                "w_uq": ParamDef((cfg.q_lora_rank, cfg.n_heads, qk_dim),
+                                 ("qk_lora", "heads", None)),
+            }
+        else:  # a direct query projection (DeepSeek-V2-Lite)
+            query = {"w_q": ParamDef((cfg.d_model, cfg.n_heads, qk_dim), ("embed", "heads", None))}
+        return dict(query, **{
             "w_dkv": ParamDef(
                 (cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_head_dim), ("embed", "qk_lora")
             ),
@@ -123,7 +131,7 @@ def _attn_defs(cfg: ModelConfig) -> Dict[str, Any]:
                 (cfg.kv_lora_rank, cfg.n_heads, cfg.v_head_dim), ("qk_lora", "heads", None)
             ),
             "wo": ParamDef((cfg.n_heads, cfg.v_head_dim, cfg.d_model), ("heads", None, "embed")),
-        }
+        })
     return gqa_defs(
         cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias
     )
@@ -187,39 +195,75 @@ def _mla_attention(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Multi-head Latent Attention. Decode runs the absorbed form against
     the compressed cache [B, S, kv_lora] + [B, S, rope_d], written in
-    place. With ``mesh``, the heads are this rank's block of ``model``:
-    the replicated latents enter through ``copy_to`` (their down
-    projections' gradients split, ``wgrad_split``) and the output leaves
-    through ``psum``. With ``split`` (a mesh), the cache holds this
-    rank's block of positions along ``model`` and decode is flash-decode
-    (``_split_softmax_values``)."""
+    place. The query is projected through its LoRA (``w_dq``, ``q_norm``,
+    ``w_uq``), or directly (``w_q``) where ``q_lora_rank`` is 0; under YaRN
+    (``model_settings(cfg).yarn``) the rope dims take YaRN's frequencies and
+    the softmax scale its temperature (``layers.yarn_rope``). The score,
+    softmax and value part is the span ``mla.attend``. With ``mesh``, the
+    heads are this rank's block of ``model``: the replicated latents enter
+    through ``copy_to`` (their down projections' gradients split,
+    ``wgrad_split``) and the output leaves through ``psum``. With ``split``
+    (a mesh), the cache holds this rank's block of positions along
+    ``model`` and decode is flash-decode (``_split_softmax_values``)."""
     B, S, _ = x.shape
     enter = lambda t: collectives.copy_to(t, mesh, "model")  # noqa: E731
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     scale = float((nope + rope_d) ** -0.5)
+    yarn = model_settings(cfg).yarn
+    freqs, rotated = None, 1.0
+    if yarn is not None:
+        freqs, rotated, temperature = yarn_rope(yarn, rope_d, float(cfg.rope_theta), x.device)
+        scale *= temperature
+
+    def rope(t: torch.Tensor) -> torch.Tensor:
+        t = apply_rope(t, positions, cfg.rope_theta, freqs)
+        return t if rotated == 1.0 else t * rotated
 
     down = wgrad_split(mesh)
-    cq = rms_norm(down("bsd,dr->bsr", x, p["w_dq"]), p["q_norm"])
-    q = torch.einsum("bsr,rhk->bshk", enter(cq), p["w_uq"])
+    if cfg.q_lora_rank:
+        cq = rms_norm(down("bsd,dr->bsr", x, p["w_dq"]), p["q_norm"])
+        q = torch.einsum("bsr,rhk->bshk", enter(cq), p["w_uq"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", enter(x), p["w_q"])
     n_heads = q.shape[2]
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_nope = q[..., :nope]
 
     ckv_full = down("bsd,dr->bsr", x, p["w_dkv"])
     c_kv = rms_norm(ckv_full[..., : cfg.kv_lora_rank], p["kv_norm"])
-    k_rope = apply_rope(ckv_full[:, :, None, cfg.kv_lora_rank :], positions, cfg.rope_theta)[:, :, 0]
+    k_rope = ckv_full[:, :, None, cfg.kv_lora_rank :]
+    if mode == "decode":  # one rope call for the query and the key: fewer launches a step
+        q_rope, k_rope = rope(torch.cat([q[..., nope:], k_rope], dim=2)).split([n_heads, 1], 2)
+    else:  # no copy of the query's rope dims at long sequences
+        q_rope, k_rope = rope(q[..., nope:]), rope(k_rope)
+    k_rope = k_rope[:, :, 0]
 
     if mode != "decode":
-        k_nope = torch.einsum("bsr,rhk->bshk", enter(c_kv), p["w_uk"])
-        v = torch.einsum("bsr,rhv->bshv", enter(c_kv), p["w_uv"])
-        k = torch.cat([k_nope, enter(k_rope)[:, :, None].expand(B, S, n_heads, rope_d)], dim=-1)
-        qq = torch.cat([q_nope, q_rope], dim=-1)
-        out = causal_attention(qq, k, v, q_chunk=q_chunk, softmax_scale=scale)
+        with _obs_trace.span("mla.attend"):
+            k_nope = torch.einsum("bsr,rhk->bshk", enter(c_kv), p["w_uk"])
+            v = torch.einsum("bsr,rhv->bshv", enter(c_kv), p["w_uv"])
+            k = torch.cat([k_nope, enter(k_rope)[:, :, None].expand(B, S, n_heads, rope_d)],
+                          dim=-1)
+            qq = torch.cat([q_nope, q_rope], dim=-1)
+            out = causal_attention(qq, k, v, q_chunk=q_chunk, softmax_scale=scale)
         y = collectives.psum(torch.einsum("bshv,hvd->bsd", out, p["wo"]), mesh, "model")
         cache_out = {"c_kv": c_kv, "k_rope": k_rope} if mode == "prefill" else None
         return y, cache_out
 
     assert S == 1 and cache is not None and cache_pos is not None
+    with _obs_trace.span("mla.attend"):
+        out = _mla_decode(q_nope, q_rope, c_kv, k_rope, p, cache, cache_pos, scale,
+                          mesh=mesh, split=split)
+    y = collectives.psum(torch.einsum("bshv,hvd->bsd", out, p["wo"]), mesh, "model")
+    return y, cache
+
+
+def _mla_decode(q_nope, q_rope, c_kv, k_rope, p, cache, cache_pos: int, scale: float, *,
+                mesh, split) -> torch.Tensor:
+    """MLA's absorbed decode against the compressed cache: the new token's
+    latents written at ``cache_pos``, ``W_uk`` absorbed into the query, the
+    scores over every cached position, the softmax and the latent values
+    through ``W_uv``; [B, 1, H, v_head_dim]."""
+    n_heads = q_nope.shape[2]
     ckv_cache, kr_cache = cache["c_kv"], cache["k_rope"]
     first = axis_index(split, "model") * ckv_cache.shape[1]  # this rank's positions
     if first <= cache_pos < first + ckv_cache.shape[1]:
@@ -233,7 +277,7 @@ def _mla_attention(
         torch.einsum("bshr,btr->bhst", at_least_fp32(q_c), at_least_fp32(ckv_cache))
         + torch.einsum("bshk,btk->bhst", at_least_fp32(q_rope), at_least_fp32(kr_cache))
     ) * scale
-    t_pos = first + torch.arange(ckv_cache.shape[1], device=x.device)
+    t_pos = first + torch.arange(ckv_cache.shape[1], device=q_nope.device)
     scores = torch.where((t_pos <= cache_pos)[None, None, None, :], scores, -1e30)
     values = lambda probs: torch.einsum(  # noqa: E731
         "bhst,btr->bshr", probs.to(ckv_cache.dtype), ckv_cache)
@@ -243,9 +287,7 @@ def _mla_attention(
         ctx_c = _split_softmax_values(scores, values, split)
         if mesh is not None:
             ctx_c = ctx_c[:, :, axis_index(mesh, "model") * n_heads:][:, :, :n_heads]
-    out = torch.einsum("bshr,rhv->bshv", ctx_c, p["w_uv"])
-    y = collectives.psum(torch.einsum("bshv,hvd->bsd", out, p["wo"]), mesh, "model")
-    return y, cache
+    return torch.einsum("bshr,rhv->bshv", ctx_c, p["w_uv"])
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +299,8 @@ def _attention(cfg: ModelConfig, ctx, p, h, positions, **kw):
     heads shard over ``model``), summed over ``model``."""
     if cfg.use_mla:
         mesh = _mesh(ctx)
-        sharded = _tp(ctx) > 1 and p["w_uq"].shape[1] < cfg.n_heads
+        query = p["w_uq"] if cfg.q_lora_rank else p["w_q"]
+        sharded = _tp(ctx) > 1 and query.shape[1] < cfg.n_heads
         return _mla_attention(cfg, p, h, positions, mesh=mesh if sharded else None,
                               split=mesh if _split_cache(ctx, kw) else None, **kw)
     return tp_gqa_attention(ctx, p, h, positions, n_heads=cfg.n_heads,
@@ -479,10 +522,12 @@ def _block(
 
     h2 = rms_norm(x, p["norm2"])
     if moe:
+        settings = model_settings(cfg)
         mlp_out, aux = moe_layer(
             p["moe"], h2, top_k=cfg.top_k,
             capacity_factor=cfg.capacity_factor, activation=cfg.activation,
             mesh=_mesh(ctx), dp_axes=("pod", "data"),
+            norm_topk_prob=settings.norm_topk_prob, dropless=settings.dropless,
         )
         if "shared" in p["moe"]:
             mlp_out = mlp_out + _mlp(ctx, p["moe"]["shared"], h2, cfg.activation,
