@@ -20,30 +20,35 @@ block that (a) starts at or after the stop offset, (b) is a Dynamic or
 Non-Compressed block, and (c) is not final — i.e. a block the *block finder
 of the next chunk could also have found*. Fixed and final blocks are decoded
 past the nominal boundary (paper §3.3/§3.4.3).
+
+The port decodes the blocks in compiled host code (``kernels/csrc/
+inflate.cpp``, built by the host C++ compiler at first use through
+``repro_torch._native``, which imports no torch, and called through
+``ctypes``, which releases the GIL), so the first pass's workers
+decode at once instead of queueing on one interpreter. That is why this
+module is no longer a verbatim copy of ``repro.core.deflate``: one call runs
+the whole block loop (headers, stored blocks, the Huffman loop, the stop
+rule, markers); Python keeps the gzip framing between members and the
+output buffer, which it doubles when a block does not fit (the call then
+returns at that block's start, and the block is decoded again). Output,
+block boundaries, marker bounds, stop offsets and the type of every error
+are those of the reference's Python decoder, which the tests hold it to.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from .. import _native
+from ..obs import trace as _obs_trace
 from .bitreader import BitReader
 from .errors import DeflateError, EndOfStream, GzipFooterError
 from .gzip_format import parse_gzip_footer, parse_gzip_header
-from .huffman import (
-    DISTANCE_BASE,
-    DISTANCE_EXTRA,
-    FIXED_DISTANCE_LUT,
-    FIXED_LITERAL_LUT,
-    LENGTH_BASE,
-    LENGTH_EXTRA,
-    MAX_PRECODE_LEN,
-    PRECODE_ORDER,
-    HuffmanLUT,
-    decode_code_lengths,
-)
 
 WINDOW_SIZE = 32768
 MARKER_BASE = 256  # symbol value 256 + w refers to unknown-window byte w
@@ -140,321 +145,196 @@ class DeflateChunkDecoder:
         window=None  -> two-stage marker mode (unknown window).
         window=bytes -> single-stage mode; b"" means known-empty (stream start).
         """
-        total_bits = len(self.data) * 8
+        # A start outside the data raises as the reference's reader does.
+        BitReader(self.data, start_bit)
         if stop_bit is None:
-            stop_bit = total_bits
-        br = BitReader(self.data, start_bit)
+            stop_bit = len(self.data) * 8
+        src = np.frombuffer(self.data, dtype=np.uint8)
 
         marker_mode = window is None
         dtype = np.uint16 if marker_mode else np.uint8
         out = np.empty(max(initial_capacity, 1024), dtype=dtype)
-        if window:
-            win_arr = np.frombuffer(window, dtype=np.uint8)
-        else:
-            win_arr = np.empty(0, dtype=np.uint8)
-        win_len = int(win_arr.shape[0])
+        win_arr = np.frombuffer(window, dtype=np.uint8) if window else _NO_WINDOW
 
-        state = _DecodeState(out, marker_mode, win_arr, win_len, max_out)
+        state = np.array([start_bit, 0, -1, -1, 0, 0, 0, 0], dtype=np.int64)
+        records = np.empty((_RECORDS_PER_CALL, 4), dtype=np.int64)
         result = DecodeResult(start_bit=start_bit, end_bit=start_bit, data=out, marker_mode=marker_mode)
 
         while True:
-            block_start = br.bit_pos
-            # +7: a stored block's canonical offset can sit up to 7 bits
-            # after its true start, and the canonical offset is what must be
-            # compared against the stop offset.
-            if result.blocks and block_start + 7 >= stop_bit:
-                # Stop only at a block the next chunk's finder could find:
-                # non-final Dynamic or Non-Compressed (paper §3.3).
-                probe = br.peek(3)
-                is_final = probe & 1
-                btype = (probe >> 1) & 3
-                if not is_final and btype in (BT_STORED, BT_DYNAMIC):
-                    # Compare (and record) the canonical offset for stored
-                    # blocks so stop offsets always match finder candidates
-                    # and index seek points (padding ambiguity, §3.4.1).
-                    effective = (
-                        canonical_stored_offset(block_start)
-                        if btype == BT_STORED
-                        else block_start
-                    )
-                    if effective >= stop_bit:
-                        result.end_bit = effective
-                        break
-            if br.bits_left() < 3:
-                raise EndOfStream("chunk ran out of bits at block boundary")
-
-            is_final = br.read(1)
-            btype = br.read(2)
-            result.blocks.append(
-                BlockBoundary(block_start, state.n, btype, bool(is_final))
+            state[_HAVE_BLOCKS] = 1 if result.blocks else 0
+            status = _inflate(src, state, stop_bit, out, marker_mode, win_arr, records)
+            result.blocks.extend(
+                BlockBoundary(bit, pos, btype, bool(final))
+                for bit, pos, btype, final in records[: state[_BLOCKS]].tolist()
             )
-            if btype == BT_STORED:
-                self._decode_stored(br, state)
-            elif btype == BT_FIXED:
-                self._decode_huffman(br, state, FIXED_LITERAL_LUT, FIXED_DISTANCE_LUT)
-            elif btype == BT_DYNAMIC:
-                lit_lut, dist_lut = read_dynamic_header(br)
-                self._decode_huffman(br, state, lit_lut, dist_lut)
-            else:
-                raise DeflateError("reserved block type 11")
+            if status == _STOP:
+                result.end_bit = int(state[_INFO])
+                break
+            if status == _BLOCKS_FULL:
+                continue
+            if status == _FULL:
+                # The block at state[_POS] needs ``need`` symbols of room:
+                # grow by doubling, under max_out, and decode it again.
+                need = int(state[_INFO])
+                if max_out is not None and need > max_out:
+                    raise DeflateError(
+                        "chunk output exceeds max_out=%d (suspected false positive or "
+                        "extreme compression ratio)" % max_out
+                    )
+                new_cap = out.shape[0]
+                while new_cap < need:
+                    new_cap *= 2
+                grown = np.empty(new_cap, dtype=dtype)
+                n = int(state[_OUT_LEN])
+                grown[:n] = out[:n]
+                out = grown
+                continue
+            # _FINAL: the end of a deflate stream.
+            end = int(state[_POS])
+            n = int(state[_OUT_LEN])
+            if self.framing == "raw":
+                result.end_bit = end
+                result.ended_at_eos = True
+                break
+            # gzip footer: byte-align, CRC32 + ISIZE (paper Fig 1).
+            br = BitReader(self.data, end)
+            br.align_to_byte()
+            footer = parse_gzip_footer(br)
+            result.member_ends.append(MemberEnd(n, footer.crc32, footer.isize, br.bit_pos))
+            if br.bits_left() < 8:
+                result.end_bit = br.bit_pos
+                result.ended_at_eos = True
+                break
+            header_start = br.bit_pos
+            parse_gzip_header(br)
+            result.member_starts.append(MemberStart(header_start, br.bit_pos, n))
+            # Next member's first block continues the loop; the stop check
+            # applies to it like any other boundary.
+            state[_POS] = br.bit_pos
 
-            if is_final:
-                if self.framing == "raw":
-                    result.end_bit = br.bit_pos
-                    result.ended_at_eos = True
-                    break
-                # gzip footer: byte-align, CRC32 + ISIZE (paper Fig 1).
-                br.align_to_byte()
-                footer = parse_gzip_footer(br)
-                result.member_ends.append(
-                    MemberEnd(state.n, footer.crc32, footer.isize, br.bit_pos)
-                )
-                if br.bits_left() < 8:
-                    result.end_bit = br.bit_pos
-                    result.ended_at_eos = True
-                    break
-                header_start = br.bit_pos
-                hdr = parse_gzip_header(br)
-                result.member_starts.append(
-                    MemberStart(header_start, br.bit_pos, state.n)
-                )
-                # Next member's first block continues the loop; the stop
-                # check at the top applies to it like any other boundary.
-
-        result.data = state.out[: state.n]
-        result.first_marker = state.first_marker
-        result.last_marker = state.last_marker
-        if not result.blocks:
-            raise DeflateError("no blocks decoded")
+        result.data = out[: state[_OUT_LEN]]
+        result.first_marker = int(state[_FIRST_MARKER])
+        result.last_marker = int(state[_LAST_MARKER])
         return result
 
-    # -- block bodies ---------------------------------------------------------
 
-    def _decode_stored(self, br: BitReader, state: "_DecodeState") -> None:
-        br.align_to_byte()
-        length = br.read(16)
-        nlen = br.read(16)
-        if length != (~nlen & 0xFFFF):
-            raise DeflateError("stored block LEN/NLEN mismatch")
-        raw = br.read_bytes(length)
-        state.append_literal_bytes(raw)
-
-    def _decode_huffman(
-        self,
-        br: BitReader,
-        state: "_DecodeState",
-        lit_lut: HuffmanLUT,
-        dist_lut: HuffmanLUT,
-    ) -> None:
-        # Local bindings for speed in the hot loop.
-        lit_table = lit_lut.table
-        lit_bits = lit_lut.max_len
-        dist_table = dist_lut.table
-        dist_bits = dist_lut.max_len
-        peek = br.peek
-        skip = br.skip
-        read = br.read
-        lb, le = LENGTH_BASE, LENGTH_EXTRA
-        db, de = DISTANCE_BASE, DISTANCE_EXTRA
-
-        while True:
-            entry = int(lit_table[peek(lit_bits)])
-            if entry < 0:
-                raise DeflateError("invalid literal/length code")
-            skip(entry >> 16)
-            sym = entry & 0xFFFF
-            if sym < 256:
-                state.append_literal(sym)
-                continue
-            if sym == 256:
-                return
-            if sym > 285:
-                raise DeflateError("invalid length symbol %d" % sym)
-            li = sym - 257
-            length = int(lb[li])
-            extra = int(le[li])
-            if extra:
-                length += read(extra)
-
-            entry = int(dist_table[peek(dist_bits)])
-            if entry < 0:
-                raise DeflateError("invalid distance code")
-            skip(entry >> 16)
-            dsym = entry & 0xFFFF
-            if dsym > 29:
-                raise DeflateError("invalid distance symbol %d" % dsym)
-            dist = int(db[dsym])
-            extra = int(de[dsym])
-            if extra:
-                dist += read(extra)
-            state.copy_match(dist, length)
-
-
-def read_dynamic_header(br: BitReader, *, strict: bool = False) -> Tuple[HuffmanLUT, HuffmanLUT]:
-    """Parse a Dynamic Block header into (literal LUT, distance LUT).
+def read_dynamic_header(br: BitReader, *, strict: bool = False) -> None:
+    """Parse a Dynamic Block header at ``br``'s position (after the 3 block
+    header bits) and advance ``br`` past it; raises ``DeflateError`` or
+    ``EndOfStream`` as the reference's parser does at the same input.
 
     ``strict=True`` applies block-finder semantics: all three Huffman codes
-    must be valid AND complete (paper §3.4.2 steps 4-7). ``strict=False``
-    applies decoder semantics (zlib-compatible leniency for incomplete
-    distance codes).
+    must be valid AND complete (paper §3.4.2 steps 4-7), the distance code
+    checked before the literal code. ``strict=False`` applies decoder
+    semantics (zlib-compatible leniency for incomplete distance codes). The
+    decode tables themselves are built only inside the compiled decoder.
     """
-    hlit = br.read(5)
-    if strict and hlit > 29:
-        raise DeflateError("invalid HLIT")
-    hdist = br.read(5)
-    hclen = br.read(4)
-    n_lit = hlit + 257
-    n_dist = hdist + 1
-    if n_lit > 286 or n_dist > 30:
-        raise DeflateError("code count out of range (HLIT=%d HDIST=%d)" % (hlit, hdist))
-
-    precode_lengths = np.zeros(19, dtype=np.int64)
-    for i in range(hclen + 4):
-        precode_lengths[PRECODE_ORDER[i]] = br.read(3)
-    precode_lut = HuffmanLUT.from_lengths(precode_lengths, strict=strict, allow_incomplete=False)
-
-    try:
-        all_lengths = decode_code_lengths(br, precode_lut, n_lit + n_dist, strict=strict)
-    except DeflateError as exc:
-        raise DeflateError("precode data: %s" % exc) from exc
-    lit_lengths = all_lengths[:n_lit]
-    dist_lengths = all_lengths[n_lit:]
-
-    if strict:
-        # Paper §3.4.2 order: distance code (6) is checked BEFORE the literal
-        # code (7) — it is the cheaper check and filters 40x more often
-        # (Table 1). LUTs are only built after both pass.
-        from .huffman import check_code_lengths
-
-        dstatus = check_code_lengths(dist_lengths, 15)
-        if dstatus != 0:
-            raise DeflateError("distance code: status %d" % dstatus)
-        lstatus = check_code_lengths(lit_lengths, 15)
-        if lstatus != 0:
-            raise DeflateError("literal code: status %d" % lstatus)
-        if lit_lengths[256] == 0:
-            raise DeflateError("literal code: no end-of-block symbol")
-
-    lit_lut = HuffmanLUT.from_lengths(lit_lengths, strict=strict, allow_incomplete=False)
-    # Distance code: zlib permits an incomplete code (e.g. a single code or
-    # none at all, for blocks without matches).
-    if dist_lengths.max() == 0:
-        # No distance codes: any match attempt must fail. Use an all-invalid
-        # 1-bit table.
-        dist_lut = HuffmanLUT(np.full(2, -1, dtype=np.int32), 1, 0)
-    else:
-        dist_lut = HuffmanLUT.from_lengths(dist_lengths, strict=strict, allow_incomplete=True)
-    return lit_lut, dist_lut
+    state = np.zeros(_STATE_SLOTS, dtype=np.int64)
+    state[_POS] = br.bit_pos
+    src = np.frombuffer(br.data, dtype=np.uint8)
+    status = _entry("rg_dynamic_header")(src.ctypes.data, src.shape[0], state.ctypes.data, int(strict))
+    if status:
+        _raise(status, state)
+    br.seek(int(state[_POS]))
 
 
-class _DecodeState:
-    """Mutable output buffer + LZ77 window bookkeeping for one chunk."""
+# ---------------------------------------------------------------------------
+# The compiled decoder (kernels/csrc/inflate.cpp)
+# ---------------------------------------------------------------------------
 
-    __slots__ = (
-        "out",
-        "n",
-        "marker_mode",
-        "win_arr",
-        "win_len",
-        "max_out",
-        "first_marker",
-        "last_marker",
-    )
+# State slots shared with the library (int64 each).
+_POS, _OUT_LEN, _FIRST_MARKER, _LAST_MARKER, _INFO, _BLOCKS, _INFO2, _HAVE_BLOCKS = range(8)
+_STATE_SLOTS = 8
 
-    def __init__(self, out, marker_mode, win_arr, win_len, max_out):
-        self.out = out
-        self.n = 0
-        self.marker_mode = marker_mode
-        self.win_arr = win_arr
-        self.win_len = win_len
-        self.max_out = max_out
-        self.first_marker = -1
-        self.last_marker = -1
+# Statuses: where a call stopped; negative ones are errors.
+_STOP, _FINAL, _FULL, _BLOCKS_FULL = 0, 1, 2, 3
 
-    # -- capacity -----------------------------------------------------------
+#: (bit offset, output offset, type, final) records a call can return.
+_RECORDS_PER_CALL = 256
 
-    def _ensure(self, extra: int) -> None:
-        need = self.n + extra
-        cap = self.out.shape[0]
-        if need <= cap:
-            return
-        if self.max_out is not None and need > self.max_out:
-            raise DeflateError(
-                "chunk output exceeds max_out=%d (suspected false positive or "
-                "extreme compression ratio)" % self.max_out
-            )
-        new_cap = cap
-        while new_cap < need:
-            new_cap *= 2
-        grown = np.empty(new_cap, dtype=self.out.dtype)
-        grown[: self.n] = self.out[: self.n]
-        self.out = grown
+_NO_WINDOW = np.empty(0, dtype=np.uint8)
 
-    # -- emission -----------------------------------------------------------
+_ERRORS = {
+    -1: (EndOfStream, "bit reader exhausted"),
+    -2: (EndOfStream, "chunk ran out of bits at block boundary"),
+    -3: (EndOfStream, "read_bytes past end"),
+    -4: (DeflateError, "reserved block type 11"),
+    -5: (DeflateError, "stored block LEN/NLEN mismatch"),
+    -6: (DeflateError, "invalid literal/length code"),
+    -7: (DeflateError, "invalid length symbol %d"),
+    -8: (DeflateError, "invalid distance code"),
+    -9: (DeflateError, "invalid distance symbol %d"),
+    -10: (DeflateError, "distance %d exceeds window"),
+    -11: (DeflateError, "distance reaches before stream start"),
+    -12: (DeflateError, "invalid HLIT"),
+    -13: (DeflateError, "code count out of range (HLIT=%d HDIST=%d)"),
+    -14: (DeflateError, "over-subscribed Huffman code"),
+    -15: (DeflateError, "empty Huffman code"),
+    -16: (DeflateError, "incomplete Huffman code"),
+    -17: (DeflateError, "precode data: repeat code with no previous length"),
+    -18: (DeflateError, "precode data: repeat overruns code-length table"),
+    -19: (DeflateError, "precode data: zero-repeat overruns code-length table"),
+    -20: (DeflateError, "distance code: status %d"),
+    -21: (DeflateError, "literal code: status %d"),
+    -22: (DeflateError, "literal code: no end-of-block symbol"),
+}
 
-    def append_literal(self, value: int) -> None:
-        self._ensure(1)
-        self.out[self.n] = value
-        self.n += 1
+_ARGTYPES = {
+    "rg_inflate": [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64,
+    ],
+    "rg_dynamic_header": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int],
+}
 
-    def append_literal_bytes(self, raw: bytes) -> None:
-        if not raw:
-            return
-        self._ensure(len(raw))
-        arr = np.frombuffer(raw, dtype=np.uint8)
-        if self.marker_mode:
-            self.out[self.n : self.n + len(raw)] = arr  # widens to uint16
-        else:
-            self.out[self.n : self.n + len(raw)] = arr
-        self.n += len(raw)
+_stats_lock = threading.Lock()
+_stats: Dict[str, int] = {"calls": 0, "blocks": 0, "symbols": 0, "regrowths": 0}
 
-    def copy_match(self, dist: int, length: int) -> None:
-        if dist > WINDOW_SIZE:
-            raise DeflateError("distance %d exceeds window" % dist)
-        n = self.n
-        src = n - dist
-        if src < 0 and not self.marker_mode:
-            # Known window: the reference must fit inside it.
-            if -src > self.win_len:
-                raise DeflateError("distance reaches before stream start")
-        self._ensure(length)
-        out = self.out
-        end = n + length
 
-        if src < 0:
-            # Part (or all) of the match comes from the initial window.
-            from_window = min(length, -src)
-            if self.marker_mode:
-                # Markers name absolute positions in the unknown window:
-                # window index w = WINDOW_SIZE + src + i (paper §2.2 step 2).
-                w0 = WINDOW_SIZE + src
-                out[n : n + from_window] = np.arange(
-                    MARKER_BASE + w0, MARKER_BASE + w0 + from_window, dtype=np.uint16
-                )
-                if self.first_marker < 0:
-                    self.first_marker = n
-                self.last_marker = n + from_window - 1
-            else:
-                w0 = self.win_len + src
-                out[n : n + from_window] = self.win_arr[w0 : w0 + from_window]
-            n += from_window
-            length -= from_window
-            src = 0  # remainder copies from the chunk's own start
+def stats() -> Dict[str, int]:
+    """Process-wide counts of the compiled decoder: ``calls``, ``blocks``
+    decoded (a block decoded again after a regrowth counts once),
+    ``symbols`` written, and ``regrowths`` (blocks decoded twice because
+    the output buffer filled)."""
+    with _stats_lock:
+        return dict(_stats)
 
-        # Remaining copy is chunk-internal; handle overlap by periodic copy
-        # with doubling (classic LZ77 overlap expansion).
-        while length > 0:
-            avail = n - src
-            take = min(length, avail)
-            seg = out[src : src + take]
-            out[n : n + take] = seg
-            if self.marker_mode and self.last_marker >= src:
-                # Conservative: copied region may contain markers.
-                self.first_marker = self.first_marker if self.first_marker >= 0 else n
-                self.last_marker = n + take - 1
-            n += take
-            length -= take
-        self.n = n
+
+def _entry(symbol: str):
+    """An entry of the decoder library, built and loaded at first use."""
+    return _native.HOST.entry("inflate", symbol, _ARGTYPES[symbol])
+
+
+def _raise(status: int, state: np.ndarray) -> None:
+    cls, fmt = _ERRORS[status]
+    n_args = fmt.count("%d")
+    args = (int(state[_INFO]), int(state[_INFO2]))[:n_args]
+    raise cls(fmt % args if n_args else fmt)
+
+
+def _inflate(src, state, stop_bit, out, marker_mode, win_arr, records) -> int:
+    """One compiled call (span ``stage1.decode``, its output symbols an
+    attribute); raises on an error status."""
+    fn = _entry("rg_inflate")
+    n0 = int(state[_OUT_LEN])
+    with _obs_trace.span("stage1.decode") as sp:
+        status = fn(
+            src.ctypes.data, src.shape[0], state.ctypes.data, stop_bit, out.ctypes.data,
+            out.shape[0], int(marker_mode), win_arr.ctypes.data, win_arr.shape[0],
+            records.ctypes.data, records.shape[0],
+        )
+        if status >= 0:
+            sp.set_attr("symbols", int(state[_OUT_LEN]) - n0)
+    with _stats_lock:
+        _stats["calls"] += 1
+        if status >= 0:
+            _stats["blocks"] += int(state[_BLOCKS])
+            _stats["symbols"] += int(state[_OUT_LEN]) - n0
+            _stats["regrowths"] += status == _FULL
+    if status < 0:
+        _raise(status, state)
+    return status
 
 
 # ---------------------------------------------------------------------------
