@@ -9,9 +9,11 @@ cross-attention (learned positions), GELU MLPs and the unembedding tied to
 layer's cross K/V once and returns it in the cache, and decode reads it
 from there and writes the self-attention cache in place.
 
-With ``ctx`` on a mesh, attention runs on this rank's heads and the MLPs
-on its FFN columns (``transformer.tp_gqa_attention``, ``copy_to`` in and
-``psum`` out, the MLP's output bias added after the sum), the embedding
+Every attention (the encoder's, unmasked; the decoder's causal self
+attention; cross attention, unmasked) ends in ``layers.attend``. With
+``ctx`` on a mesh, attention runs on this rank's heads and the MLPs on its
+FFN columns (``transformer.tp_gqa_attention``, ``copy_to`` in and ``psum``
+out, the MLP's output bias added after the sum), the embedding
 and the tied logits on its vocabulary rows. The cross K/V cache keeps
 every head, as the JAX package's cache layout holds it: prefill gathers
 the heads, and decode reads the ones this rank's query heads need.

@@ -7,7 +7,10 @@ initializers as the JAX package) and held by ``ParamTree`` modules, one
 JAX package's dicts. The layer functions are plain tensor arithmetic that
 mirrors the JAX math: bf16 products, fp32 norm statistics, RoPE and
 softmax, attention scores accumulated in fp32 (``preferred_element_type``)
-and probabilities cast to the value dtype before P.V.
+and probabilities cast to the value dtype before P.V. Every attention of
+the models ends in one core, ``attend`` (the mask, the softmax, the value
+product), its mask from one position rule, ``visible``; decode against a
+GQA cache of any layout is ``write_kv`` then ``gqa_decode``.
 
 Decode updates caches in place (the counterpart of the JAX serve step's
 donated caches): a cache passed in is the per-layer view of the stacked
@@ -25,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..distributed import collectives
 
 Params = Any  # a ParamTree, or a nested dict of tensors
 
@@ -409,6 +414,50 @@ def _grouped_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
 
 
+#: The score a masked key takes before the softmax.
+MASKED = -1e30
+
+
+def visible(kv_pos: torch.Tensor, q_pos, window: Optional[int] = None) -> torch.Tensor:
+    """The position rule: the keys a query at ``q_pos`` (an int, or [Sq, 1])
+    sees among keys at ``kv_pos`` ([Skv]: a linear cache's ``arange``, a
+    ring's ``pos``, or this rank's slice of either) -- those at or before
+    it, and with ``window`` those fewer than ``window`` positions before
+    it, an empty ring slot (position -1) never. Only a ring has empty
+    slots and every ring has a window, so the slot test goes with the
+    window's."""
+    valid = kv_pos <= q_pos
+    if window is not None:
+        valid = valid & (kv_pos > q_pos - window) & (kv_pos >= 0)
+    return valid
+
+
+def attend(scores: torch.Tensor, valid: Optional[torch.Tensor], v: torch.Tensor,
+           values: Callable = _grouped_values, split=None) -> torch.Tensor:
+    """The attention core, which every attention of the models ends in:
+    ``scores`` (in ``at_least_fp32``'s precision, scaled, the keys on the
+    last dim) set to ``MASKED`` where ``valid`` (``visible``'s mask,
+    broadcasting over them; None masks nothing) is false, the softmax over
+    the keys, and ``values(probs, v)``, which casts the probabilities to
+    ``v``'s dtype (``_grouped_values``, or MLA's latent product). With
+    ``split`` (a mesh), the keys are this rank's block of those split over
+    ``model`` and the softmax is flash-decode's: the max and the sum of the
+    exponentials over every rank's keys, the partial products with this
+    rank's values summed over ``model``. Callers pass ``scores`` as a
+    temporary, so that the unmasked scores are freed once masked: one
+    score tensor at the peak, not two."""
+    if valid is not None:
+        scores = torch.where(valid, scores, MASKED)
+    if split is None:
+        return values(torch.softmax(scores, dim=-1), v)
+    from torch.distributed import ReduceOp
+
+    m = collectives.all_reduce_(scores.amax(-1, keepdim=True), split, "model", op=ReduceOp.MAX)
+    e = torch.exp(scores - m)
+    total = collectives.all_reduce_(e.sum(-1, keepdim=True), split, "model")
+    return collectives.all_reduce_(values(e / total, v), split, "model")
+
+
 def causal_attention(
     q: torch.Tensor,  # [B, Sq, H, Dh]
     k: torch.Tensor,  # [B, Skv, Kv, Dh]
@@ -423,11 +472,13 @@ def causal_attention(
 ) -> torch.Tensor:
     """Grouped-query attention with optional q-chunking: each q-block
     attends only to the kv prefix it can see (``kv_hi``), so no work is
-    spent on fully masked blocks."""
+    spent on fully masked blocks. ``causal=False`` (the encoder, cross
+    attention) masks nothing: no window, no ``kv_len``."""
     b, sq, h, dh = q.shape
     kv_heads = k.shape[2]
     dv = v.shape[-1]  # may differ from dh (MLA: qk_dim != v_head_dim)
     assert h % kv_heads == 0, (h, kv_heads)
+    assert causal or (kv_len is None and sliding_window is None)
     g = h // kv_heads
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
     qg = q.reshape(b, sq, kv_heads, g, dh)
@@ -435,23 +486,15 @@ def causal_attention(
 
     def block(q_blk, blk_offset, kv_hi):
         """q_blk: [B, C, K, G, Dh] attending to k[:, :kv_hi]."""
-        kk = k[:, :kv_hi]
-        vv = v[:, :kv_hi]
-        scores = _grouped_scores(q_blk, kk) * scale  # [B,K,G,C,kv_hi]
-        q_pos = blk_offset + torch.arange(q_blk.shape[1], device=dev)[:, None] + q_offset
-        kv_pos = torch.arange(kv_hi, device=dev)[None, :]
-        mask = torch.ones((q_blk.shape[1], kv_hi), dtype=torch.bool, device=dev)
+        valid = None
         if causal:
-            mask &= kv_pos <= q_pos
-        if sliding_window is not None:
-            mask &= kv_pos > q_pos - sliding_window
-        if kv_len is not None:
-            mask = mask[None] & (kv_pos[None] < kv_len[:, None, None])
-            scores = torch.where(mask[:, None, None], scores, -1e30)
-        else:
-            scores = torch.where(mask[None, None, None], scores, -1e30)
-        probs = torch.softmax(scores, dim=-1)
-        return _grouped_values(probs, vv)
+            first = q_offset + blk_offset
+            kv_pos = torch.arange(kv_hi, device=dev)
+            valid = visible(kv_pos, torch.arange(first, first + q_blk.shape[1], device=dev)[:, None],
+                            sliding_window)
+            if kv_len is not None:  # per batch row: [B, 1, 1, C, kv_hi]
+                valid = (valid & (kv_pos < kv_len[:, None, None]))[:, None, None]
+        return attend(_grouped_scores(q_blk, k[:, :kv_hi]) * scale, valid, v[:, :kv_hi])
 
     if q_chunk is None or q_chunk >= sq or not causal:
         out = block(qg, 0, k.shape[1])
@@ -465,6 +508,65 @@ def causal_attention(
         kv_hi = min(k.shape[1], q_offset + hi)
         outs.append(block(qg[:, lo:hi], lo, kv_hi))
     return torch.cat(outs, dim=1).reshape(b, sq, h, dv)
+
+
+def write_kv(
+    cache: Dict[str, torch.Tensor],
+    k_new: torch.Tensor,  # [B, 1, Kv, Dh]
+    v_new: torch.Tensor,
+    position: int,
+    window: Optional[int] = None,
+    first: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[int]]:
+    """Write one token's K/V into its slot of ``cache``, in place: slot
+    ``position`` of a linear cache, ``position % W`` of a ring of W slots,
+    whose ``pos`` [W] records the position. A cache whose slots split over
+    ``model`` holds the whole cache's from ``first`` on: only the rank
+    holding the slot writes K/V, and every rank writes the ring's whole
+    ``pos``. Returns ``gqa_decode``'s ``kv_pos`` and ``window``: the
+    positions this cache's slots hold (-1 an empty ring slot), and the
+    model's ``window`` (a ring's size where it has none); over a linear
+    cache none until ``position`` reaches it, as it masks nothing before."""
+    k_cache, v_cache = cache["k"], cache["v"]
+    n, lo = k_cache.shape[1], first or 0
+    ring = "pos" in cache
+    slot = position % cache["pos"].shape[0] if ring else position
+    if first is None or lo <= slot < lo + n:  # a whole cache holds every slot
+        k_cache[:, slot - lo] = k_new[:, 0]
+        v_cache[:, slot - lo] = v_new[:, 0]
+    if not ring:
+        kv_pos = torch.arange(lo, lo + n, device=k_cache.device)
+        return kv_pos, window if window is not None and position >= window else None
+    pos = cache["pos"]
+    pos[slot] = position
+    return (pos if first is None else pos[lo:lo + n]), window or pos.shape[0]
+
+
+def gqa_decode(
+    q: torch.Tensor,  # [B, 1, H, Dh]
+    k_cache: torch.Tensor,  # [B, n, Kv, Dh]
+    v_cache: torch.Tensor,
+    kv_pos: torch.Tensor,  # [n]
+    position: int,
+    *,
+    window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+    kv_index: Optional[torch.Tensor] = None,
+    split=None,
+) -> torch.Tensor:
+    """One token's grouped-query attention against a cache written by
+    ``write_kv`` (its ``kv_pos`` and ``window``): a linear cache, a ring,
+    or this rank's block of either split over ``model`` (``split``, as
+    ``attend`` takes it). ``kv_index`` names the KV head each query head
+    reads. [B, 1, H, Dv]."""
+    if kv_index is not None:
+        k_cache, v_cache = k_cache[:, :, kv_index], v_cache[:, :, kv_index]
+    b, _, h, dh = q.shape
+    kv_heads = k_cache.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
+    out = attend(_grouped_scores(q.reshape(b, 1, kv_heads, h // kv_heads, dh), k_cache) * scale,
+                 visible(kv_pos, position, window), v_cache, split=split)
+    return out.reshape(b, 1, h, v_cache.shape[-1])
 
 
 def ring_attention_decode(
@@ -481,25 +583,31 @@ def ring_attention_decode(
     """Sliding-window decode against a ring buffer of size W, updated in
     place: slot ``p % W`` holds position ``p``, and the per-slot position
     array masks empty and out-of-window entries (keys were rotated before
-    insertion, so absolute RoPE stays right)."""
-    b, _, h, dh = q.shape
-    k_cache, v_cache, pos = cache["k"], cache["v"], cache["pos"]
-    W = k_cache.shape[1]
-    slot = position % W
-    k_cache[:, slot] = k_new[:, 0]
-    v_cache[:, slot] = v_new[:, 0]
-    pos[slot] = position
-    if kv_index is not None:
-        k_cache, v_cache = k_cache[:, :, kv_index], v_cache[:, :, kv_index]
-    kv_heads = k_cache.shape[2]
-    g = h // kv_heads
-    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
-    scores = _grouped_scores(q.reshape(b, 1, kv_heads, g, dh), k_cache) * scale
-    valid = (pos >= 0) & (pos <= position) & (pos > position - sliding_window)
-    scores = torch.where(valid[None, None, None, None, :], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    out = _grouped_values(probs, v_cache).reshape(b, 1, h, dh)
+    insertion, so absolute RoPE stays right): ``write_kv``, then
+    ``gqa_decode``."""
+    kv_pos, window = write_kv(cache, k_new, v_new, position, sliding_window)
+    out = gqa_decode(q, cache["k"], cache["v"], kv_pos, position, window=window,
+                     softmax_scale=softmax_scale, kv_index=kv_index)
     return out, cache
+
+
+def project_qkv(params: Params, x: torch.Tensor, positions: torch.Tensor, *,
+                rope_theta: float = 10000.0, use_rope: bool = True,
+                einsum: Callable = torch.einsum
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The query, key and value heads of ``x`` ([B, S, H or Kv, Dh]): the
+    projections, their biases where declared, RoPE where used."""
+    q = einsum("bsd,dhk->bshk", x, params["wq"])
+    k = einsum("bsd,dhk->bshk", x, params["wk"])
+    v = einsum("bsd,dhk->bshk", x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    return q, k, v
 
 
 def gqa_attention_block(
@@ -533,39 +641,14 @@ def gqa_attention_block(
                place (linear caches at ``cache_pos``, sliding-window ring
                buffers at ``cache_pos % W``) and returned.
     """
-    q = einsum("bsd,dhk->bshk", x, params["wq"])
-    k = einsum("bsd,dhk->bshk", x, params["wk"])
-    v = einsum("bsd,dhk->bshk", x, params["wv"])
-    if "bq" in params:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    if use_rope:
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
-
+    q, k, v = project_qkv(params, x, positions, rope_theta=rope_theta, use_rope=use_rope,
+                          einsum=einsum)
     if mode == "decode":
         assert cache is not None and cache_pos is not None and x.shape[1] == 1
-        if "pos" in cache:  # ring buffer (sliding window)
-            out, new_cache = ring_attention_decode(
-                q, cache, k, v, cache_pos,
-                sliding_window=sliding_window or cache["k"].shape[1],
-                softmax_scale=softmax_scale, kv_index=kv_index,
-            )
-        else:
-            cache["k"][:, cache_pos] = k[:, 0]
-            cache["v"][:, cache_pos] = v[:, 0]
-            new_cache = cache
-            kv_len = torch.full((x.shape[0],), cache_pos + 1, dtype=torch.int32, device=x.device)
-            k_all, v_all = cache["k"], cache["v"]
-            if kv_index is not None:
-                k_all, v_all = k_all[:, :, kv_index], v_all[:, :, kv_index]
-            out = causal_attention(
-                q, k_all, v_all,
-                q_offset=cache_pos, kv_len=kv_len,
-                sliding_window=sliding_window,
-                softmax_scale=softmax_scale, causal=causal,
-            )
+        kv_pos, window = write_kv(cache, k, v, cache_pos, sliding_window)
+        out = gqa_decode(q, cache["k"], cache["v"], kv_pos, cache_pos, window=window,
+                         softmax_scale=softmax_scale, kv_index=kv_index)
+        new_cache = cache
     else:
         k_att, v_att = (k, v) if kv_index is None else (k[:, :, kv_index], v[:, :, kv_index])
         out = causal_attention(

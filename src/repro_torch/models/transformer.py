@@ -49,15 +49,20 @@ from .layers import (
     ParamDef,
     apply_rope,
     at_least_fp32,
+    attend,
     causal_attention,
     gated_mlp,
     gated_mlp_defs,
     gqa_attention_block,
+    gqa_decode,
     gqa_defs,
     init_kv_cache,
+    project_qkv,
     rms_norm,
     stack_defs,
     tree_map,
+    visible,
+    write_kv,
     yarn_rope,
 )
 from .moe import moe_defs, moe_layer
@@ -204,7 +209,7 @@ def _mla_attention(
     through ``copy_to`` (their down projections' gradients split,
     ``wgrad_split``) and the output leaves through ``psum``. With ``split``
     (a mesh), the cache holds this rank's block of positions along
-    ``model`` and decode is flash-decode (``_split_softmax_values``)."""
+    ``model`` and decode is flash-decode (``layers.attend``'s ``split``)."""
     B, S, _ = x.shape
     enter = lambda t: collectives.copy_to(t, mesh, "model")  # noqa: E731
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -261,8 +266,9 @@ def _mla_decode(q_nope, q_rope, c_kv, k_rope, p, cache, cache_pos: int, scale: f
                 mesh, split) -> torch.Tensor:
     """MLA's absorbed decode against the compressed cache: the new token's
     latents written at ``cache_pos``, ``W_uk`` absorbed into the query, the
-    scores over every cached position, the softmax and the latent values
-    through ``W_uv``; [B, 1, H, v_head_dim]."""
+    scores over every cached position (the latent and the rope product,
+    summed), ``layers.attend`` with the latent values, and ``W_uv``;
+    [B, 1, H, v_head_dim]."""
     n_heads = q_nope.shape[2]
     ckv_cache, kr_cache = cache["c_kv"], cache["k_rope"]
     first = axis_index(split, "model") * ckv_cache.shape[1]  # this rank's positions
@@ -273,21 +279,20 @@ def _mla_decode(q_nope, q_rope, c_kv, k_rope, p, cache, cache_pos: int, scale: f
     if split is not None and mesh is not None:  # every head against this rank's positions
         q_c = collectives.all_gather(q_c, split, "model", dim=2)
         q_rope = collectives.all_gather(q_rope, split, "model", dim=2)
-    scores = (
+    t_pos = torch.arange(first, first + ckv_cache.shape[1], device=q_nope.device)
+    ctx_c = attend((
         torch.einsum("bshr,btr->bhst", at_least_fp32(q_c), at_least_fp32(ckv_cache))
         + torch.einsum("bshk,btk->bhst", at_least_fp32(q_rope), at_least_fp32(kr_cache))
-    ) * scale
-    t_pos = first + torch.arange(ckv_cache.shape[1], device=q_nope.device)
-    scores = torch.where((t_pos <= cache_pos)[None, None, None, :], scores, -1e30)
-    values = lambda probs: torch.einsum(  # noqa: E731
-        "bhst,btr->bshr", probs.to(ckv_cache.dtype), ckv_cache)
-    if split is None:
-        ctx_c = values(torch.softmax(scores, dim=-1))
-    else:
-        ctx_c = _split_softmax_values(scores, values, split)
-        if mesh is not None:
-            ctx_c = ctx_c[:, :, axis_index(mesh, "model") * n_heads:][:, :, :n_heads]
+    ) * scale, visible(t_pos, cache_pos), ckv_cache, _latent_values, split)
+    if split is not None and mesh is not None:
+        ctx_c = ctx_c[:, :, axis_index(mesh, "model") * n_heads:][:, :, :n_heads]
     return torch.einsum("bshr,rhv->bshv", ctx_c, p["w_uv"])
+
+
+def _latent_values(probs: torch.Tensor, ckv_cache: torch.Tensor) -> torch.Tensor:
+    """MLA's value product in the latent: probs [B, H, 1, T] against the
+    cache [B, T, kv_lora] -> [B, 1, H, kv_lora]."""
+    return torch.einsum("bhst,btr->bshr", probs.to(ckv_cache.dtype), ckv_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -337,14 +342,30 @@ def tp_gqa_attention(ctx: Optional[ModelContext], p, h, positions, *, n_heads: i
     a slice of the whole ``wk``/``wv`` whose gradient lands in zeros of the
     whole leaf. So does the prefill where every rank reads as many KV heads
     (``own_kv_heads``): its caches then hold this rank's KV heads, and
-    ``gather_kv_heads`` makes every head of them. Decode against caches
-    split over ``model`` is ``_gqa_split_decode``."""
+    ``gather_kv_heads`` makes every head of them.
+
+    Decode against a cache whose positions (a linear cache) or slots (a
+    ring) split over ``model``, its KV heads whole, is flash-decode: the
+    new token's K/V land on the rank holding its slot (``layers.write_kv``),
+    every query head (gathered where they shard) attends to this rank's
+    positions (``layers.gqa_decode`` with ``split``), and the output
+    projection runs on this rank's heads, summed over ``model``."""
     mesh = _mesh(ctx)
     if _split_cache(ctx, kw):
-        return _gqa_split_decode(p, h, positions, kw["cache"], kw["cache_pos"], mesh,
-                                 n_heads=n_heads, rope_theta=kw.get("rope_theta", 10000.0),
-                                 use_rope=kw.get("use_rope", True),
-                                 sliding_window=kw.get("sliding_window"))
+        cache, position = kw["cache"], kw["cache_pos"]
+        q, k, v = project_qkv(p, h, positions, rope_theta=kw.get("rope_theta", 10000.0),
+                              use_rope=kw.get("use_rope", True))
+        rank, n_local = axis_index(mesh, "model"), q.shape[2]
+        kv_pos, window = write_kv(cache, k, v, position, kw.get("sliding_window"),
+                                  first=rank * cache["k"].shape[1])
+        heads_split = n_local < n_heads
+        if heads_split:
+            q = collectives.all_gather(q, mesh, "model", dim=2)
+        out = gqa_decode(q, cache["k"], cache["v"], kv_pos, position, window=window, split=mesh)
+        if heads_split:
+            out = out[:, :, rank * n_local:][:, :, :n_local]
+        y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        return (collectives.psum(y, mesh, "model") if heads_split else y), cache
     if _tp(ctx) == 1:
         return gqa_attention_block(p, h, positions, **kw)
     if p["wq"].shape[1] == n_heads:  # every head on every rank
@@ -390,76 +411,6 @@ def gather_kv_heads(t: torch.Tensor, mesh, n_heads: int, n_kv_heads: int,
             for k in range(n_kv_heads)]
     return collectives.all_gather(t, mesh, "model", dim).index_select(
         dim, torch.tensor(pick, device=t.device))
-
-
-def _split_softmax_values(scores: torch.Tensor, values, mesh) -> torch.Tensor:
-    """``values(softmax(scores))`` where the last dim of ``scores`` (keys)
-    is split over ``model``: the max and the sum of the exponentials are
-    taken over every rank's keys, and the partial products with this
-    rank's values are summed over ``model`` (flash-decode)."""
-    from torch.distributed import ReduceOp
-
-    m = collectives.all_reduce_(scores.amax(-1, keepdim=True), mesh, "model", op=ReduceOp.MAX)
-    e = torch.exp(scores - m)
-    total = collectives.all_reduce_(e.sum(-1, keepdim=True), mesh, "model")
-    return collectives.all_reduce_(values(e / total), mesh, "model")
-
-
-def _gqa_split_decode(p, h, positions, cache, cache_pos: int, mesh, *, n_heads: int,
-                      rope_theta: float, use_rope: bool = True,
-                      sliding_window: Optional[int] = None):
-    """GQA decode against a cache whose positions (a linear cache) or
-    slots (a sliding-window ring) are split over ``model``, its KV heads
-    whole (their count does not divide ``model``). The new token's K/V land
-    on the rank holding ``cache_pos`` (a ring's slot ``cache_pos % W``;
-    every rank writes the ring's whole ``pos``); every query head
-    (gathered when they shard over ``model``) attends to each rank's
-    positions, masked by position (a ring's slots by the positions ``pos``
-    gives them, as ``layers.ring_attention_decode`` masks them), combined
-    by ``_split_softmax_values``; the output projection runs on this rank's
-    heads and is summed over ``model``."""
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if use_rope:
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
-    k_cache, v_cache = cache["k"], cache["v"]
-    n_slots = k_cache.shape[1]
-    first = axis_index(mesh, "model") * n_slots
-    ring = "pos" in cache
-    at = cache_pos % cache["pos"].shape[0] if ring else cache_pos
-    if first <= at < first + n_slots:
-        k_cache[:, at - first] = k[:, 0]
-        v_cache[:, at - first] = v[:, 0]
-    if ring:
-        pos = cache["pos"]
-        pos[at] = cache_pos
-        kv_pos = pos[first : first + n_slots]
-        window = sliding_window or pos.shape[0]
-        valid = (kv_pos >= 0) & (kv_pos <= cache_pos) & (kv_pos > cache_pos - window)
-    else:
-        kv_pos = first + torch.arange(n_slots, device=h.device)
-        valid = kv_pos <= cache_pos
-    n_local = q.shape[2]
-    heads_split = n_local < n_heads
-    if heads_split:
-        q = collectives.all_gather(q, mesh, "model", dim=2)
-    b, _, n_heads, dh = q.shape
-    kv_heads = k_cache.shape[2]
-    scores = torch.einsum("bqkgd,bskd->bkgqs",
-                          at_least_fp32(q.reshape(b, 1, kv_heads, n_heads // kv_heads, dh)),
-                          at_least_fp32(k_cache)) * (1.0 / math.sqrt(dh))
-    scores = torch.where(valid[None, None, None, None, :], scores, -1e30)
-    out = _split_softmax_values(
-        scores, lambda probs: torch.einsum("bkgqs,bskd->bqkgd", probs.to(v_cache.dtype), v_cache),
-        mesh).reshape(b, 1, n_heads, dh)
-    if heads_split:
-        out = out[:, :, axis_index(mesh, "model") * n_local:][:, :, :n_local]
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return (collectives.psum(y, mesh, "model") if heads_split else y), cache
 
 
 def _mlp(ctx, p, h, activation: str, d_ff: int):

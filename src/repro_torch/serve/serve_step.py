@@ -17,7 +17,7 @@ than ``model``) and for MLA's compressed cache, the cache splits its
 sequence (a sliding-window ring its slots, ``pos`` whole) over ``model``
 instead and decode is flash-decode: each rank attends to its positions,
 and the softmax's max and sum and the weighted values are combined over
-``model`` (``transformer._split_softmax_values``), so the cache never
+``model`` (``models.layers.attend``'s ``split``), so the cache never
 moves. The xLSTM's matrix memories split their ``Dk`` rows over
 ``model``.
 """

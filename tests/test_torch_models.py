@@ -18,6 +18,7 @@ another summation order to every block (1.0x).
 
 import dataclasses
 import math
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -131,6 +132,62 @@ def test_ring_attention_decode_after_wrap_around(rng):
     for key in ("k", "v", "pos"):
         assert np.array_equal(f32(cache[key]), f32(cache_t[key])), key
     assert sorted(f32(cache_t["pos"]).astype(int).tolist()) == list(range(12, 20))
+
+
+def _slots_by_hand(n_slots, positions, ring, first=0, n=None):
+    """The position each slot of a cache holds after ``positions`` were
+    written (None: empty), slots ``first`` to ``first + n`` of the whole:
+    a linear cache's slot j holds position j, a ring's the last position
+    written to it."""
+    if ring:
+        held = [None] * n_slots
+        for p in positions:
+            held[p % n_slots] = p
+    else:
+        held = list(range(n_slots))
+    return held[first:first + (n or n_slots)]
+
+
+def _seen_by_hand(held, q, window):
+    return [p is not None and p <= q and (window is None or q - p < window) for p in held]
+
+
+#: (whole slots, ring, window, this rank's first slot, its slots, positions written)
+POSITION_CASES = {
+    "linear": (12, False, None, 0, 12, range(12)),
+    "linear_past_its_window": (12, False, 5, 0, 12, range(12)),
+    "ring_with_empty_slots": (8, True, None, 0, 8, range(5)),
+    "window_narrower_than_ring": (8, True, 3, 0, 8, range(20)),
+    "split_linear_slice": (16, False, None, 8, 4, range(16)),
+    "split_ring_slice": (8, True, 6, 4, 4, range(20)),
+}
+
+
+@pytest.mark.parametrize("case", list(POSITION_CASES))
+def test_position_rule_against_brute_force(case):
+    """``write_kv``'s slot positions and window through ``visible``, after
+    every write, against each slot's position followed by hand: seen when
+    written, at or before the query and fewer than the window before it
+    (a ring's window its size where none is given); a split cache's slice
+    starts at ``first`` > 0, and K/V land only on the rank holding the
+    slot. The train form, a query column over ``arange`` keys, as well."""
+    n_whole, ring, window, first, n, written = POSITION_CASES[case]
+    cache = tl.init_kv_cache(1, n, 1, 2, torch.float32, ring=ring)
+    if ring:
+        cache["pos"] = torch.full((n_whole,), -1, dtype=torch.int32)
+    for i, q in enumerate(written):
+        new = torch.full((1, 1, 1, 2), float(q + 1))
+        kv_pos, w = tl.write_kv(cache, new, -new, q, window, None if n == n_whole else first)
+        held = _slots_by_hand(n_whole, written[: i + 1], ring, first, n)
+        expect = _seen_by_hand(held, q, window or (n_whole if ring else None))
+        assert tl.visible(kv_pos, q, w).tolist() == expect, (q, kv_pos.tolist(), w)
+        slot = (q % n_whole if ring else q) - first
+        if 0 <= slot < n:
+            assert float(cache["k"][0, slot, 0, 0]) == q + 1 == -float(cache["v"][0, slot, 0, 0])
+    if not ring:
+        q_pos = torch.arange(n_whole)[:, None]
+        got = tl.visible(torch.arange(n_whole), q_pos, window).tolist()
+        assert got == [_seen_by_hand(list(range(n_whole)), q, window) for q in range(n_whole)]
 
 
 @pytest.fixture
@@ -372,6 +429,68 @@ def test_prefill_caches(arch):
 def test_three_decode_steps(arch):
     for step, (ref, got) in enumerate(_run(arch)["decode"]):
         close(ref, got, LOGIT_TOL[arch], "decode step %d" % step)
+
+
+#: Each attention path, and how many times a call of it reaches the core:
+#: (arch, path, calls). Smoke width: 2 decoder layers (3 for the MLA
+#: config), 2 encoder layers; a prompt of 80 is two q-blocks of 64.
+CORE_PATHS = {
+    "train": ("granite-3-2b", "train", 2),
+    "prefill_in_two_q_blocks": ("granite-3-2b", "prefill", 4),
+    "linear_decode": ("granite-3-2b", "decode", 2),
+    "ring_decode_past_wrap_around": ("hymba-1.5b", "decode", 2),
+    "mla_decode": ("deepseek-v2-lite", "decode", 3),
+    "encoder_unmasked": ("whisper-tiny", "encode", 2),
+}
+
+
+@pytest.mark.parametrize("case", list(CORE_PATHS))
+def test_every_attention_goes_through_the_core(monkeypatch, case):
+    """Every attention layer reaches ``layers.attend`` once per call of the
+    path (once per q-block where a prefill chunks): a train forward, a
+    chunked prefill, a linear decode step, a ring decode step past
+    wrap-around (hymba's 64-slot ring at position 80), an MLA decode step
+    (DeepSeek-V2-Lite at smoke width: no query LoRA, YaRN) and the
+    encoder's unmasked attention. Each passes its scores as a temporary
+    (as many references as a temporary passed here), so the core frees
+    the unmasked scores once masked."""
+    from repro_torch.configs.deepseek_v2_lite import CONFIG as LITE
+    from repro_torch.models import encdec as tencdec
+
+    arch, path, expected = CORE_PATHS[case]
+    cfg = (dataclasses.replace(smoke_config(LITE), q_lora_rank=0) if arch == LITE.name
+           else smoke_config(all_configs()[arch]))
+    model = tmodel.build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 81)))
+    calls = []
+    core = tl.attend
+
+    def counted(*args, **kw):
+        calls.append(sys.getrefcount(args[0]))
+        return core(*args, **kw)
+
+    counted(torch.zeros(1, 1, 1, 1, 2) + 0, None, torch.zeros(1, 2, 1, 1))
+    temporary = calls.pop()
+    for module in (tl, ttr):
+        monkeypatch.setattr(module, "attend", counted)
+    with torch.inference_mode():
+        if path == "train":
+            model.logits({"tokens": tokens[:, :28]})
+        elif path == "prefill":
+            model.prefill({"tokens": tokens[:, :80]})
+        elif path == "encode":
+            frames = torch.zeros((2, cfg.encoder_frames, cfg.d_model), dtype=cfg.dtype)
+            tencdec.encode(cfg, model, frames)
+        else:
+            prefill_fn, decode_fn, _ = make_serve_steps(model, batch=2, max_len=96)
+            _, caches = prefill_fn({"tokens": tokens[:, :80]})
+            caches = prefill_to_decode_caches(cfg, model, caches, 2, 96, 80)
+            calls.clear()
+            decode_fn(tokens[:, 80:81], caches, 80)
+            if arch == "hymba-1.5b":
+                pos = caches["layers"]["attn"]["pos"][0]
+                assert pos.shape == (64,) and int(pos[80 % 64]) == 80 and int(pos.min()) == 17
+    assert calls == [temporary] * expected, (calls, temporary)
 
 
 def test_model_init_draws_the_declared_distributions():
