@@ -12,14 +12,12 @@ paper's Table 2 comparison ladder:
                                 ("DBF custom deflate").
   * ``find_dynamic_skiplut`` — sequential walk with the 14-bit skip-LUT
                                 ("DBF skip-LUT").
-  * ``find_dynamic_vectorized`` — the rapidgzip-JAX finder: every bit offset
-                                in a batch is checked *simultaneously* with
-                                numpy vector ops (final/type/HLIT), then the
-                                precode Kraft check runs bit-packed over the
-                                surviving offsets ("DBF rapidgzip"; this is
-                                also the algorithm the Pallas kernel
-                                ``kernels/precode_check.py`` implements for
-                                the TPU VPU).
+  * ``scan_dynamic_candidates`` — the production finder ("DBF rapidgzip"):
+                                checks 1-3 on 48 offsets of a 64-bit window
+                                at once, then the precode Kraft check on the
+                                survivors (the algorithm the CUDA kernel
+                                ``kernels/csrc/precode_check.cu`` runs on the
+                                card, bit-sliced).
 
 The check cascade is the paper's §3.4.2 order:
   (1) final-block bit == 0           (2) block type == 0b01 (dynamic)
@@ -31,49 +29,40 @@ Non-Compressed-Block candidates are canonicalized to bit offset ``8*p - 3``
 (p = byte offset of the LEN field) because the zero padding makes the true
 start ambiguous (paper §3.4.1); ``deflate`` records stop offsets with the
 same canonicalization so cache keys match.
+
+The port scans in compiled host code (``kernels/csrc/inflate.cpp``, beside
+the decoder, whose strict header parse is checks 5-7; built through
+``repro_torch._native``, which imports no torch, and called through
+``ctypes``, which releases the GIL), so the first pass's workers search
+their chunks at once instead of queueing on one interpreter. That is why
+this module, like ``core/deflate.py``, is no longer a verbatim copy of
+``repro.core.block_finder``: one call returns the next candidate (or, with
+``stats``, counts checks 1-4 over a batch), and the NumPy bit planes are
+gone. The candidates, their order and ``FilterStats`` after any number
+pulled are the reference's, which ``tests/test_torch_stage1_native.py``
+holds them to.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Iterator, List, Optional
+import ctypes
+import threading
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from .. import _native
+from ..obs import trace as _obs_trace
 from .bitreader import BitReader
-from .deflate import canonical_stored_offset, read_dynamic_header
+from .deflate import read_dynamic_header
 from .errors import DeflateError, EndOfStream
 
 # -- layout constants (RFC 1951 dynamic header) ------------------------------
-_HLIT_AT = 3  # 5 bits
-_HDIST_AT = 8  # 5 bits
-_HCLEN_AT = 13  # 4 bits
-_PRECODE_AT = 17  # (HCLEN+4) x 3 bits
+_PRECODE_AT = 17  # (HCLEN+4) x 3 bits after the block's first bit
 _MAX_PRECODE_BITS = 19 * 3
 _HEADER_PROBE_BITS = _PRECODE_AT + _MAX_PRECODE_BITS  # 74
 
-
-# ---------------------------------------------------------------------------
-# Bit-plane helpers
-# ---------------------------------------------------------------------------
-
-def _bit_array(data, start_byte: int, n_bytes: int) -> np.ndarray:
-    """LSB-first bit plane of data[start_byte : start_byte+n_bytes]."""
-    buf = np.frombuffer(data, dtype=np.uint8, count=min(n_bytes, len(data) - start_byte), offset=start_byte)
-    return np.unpackbits(buf, bitorder="little")
-
-
-def _field(bits: np.ndarray, n_offsets: int, at: int, width: int) -> np.ndarray:
-    """value[i] = LSB-first ``width``-bit field at bit offset i+at, for all i."""
-    out = bits[at : at + n_offsets].astype(np.uint32)
-    for j in range(1, width):
-        out |= bits[at + j : at + j + n_offsets].astype(np.uint32) << j
-    return out
-
-
-# ---------------------------------------------------------------------------
-# Vectorized Dynamic Block finder (the production finder)
-# ---------------------------------------------------------------------------
 
 @dataclass
 class FilterStats:
@@ -93,40 +82,75 @@ class FilterStats:
         return {k: int(getattr(self, k)) for k in self.__dataclass_fields__}
 
 
-def _precode_kraft_mask(bits: np.ndarray, cand: np.ndarray) -> np.ndarray:
-    """Vectorized precode histogram check for candidate offsets ``cand``.
+# ---------------------------------------------------------------------------
+# The compiled search (kernels/csrc/inflate.cpp)
+# ---------------------------------------------------------------------------
 
-    Gathers the 19 3-bit precode code lengths per candidate, builds the
-    5-bit-packed frequency histogram (the paper's bit-level-parallel
-    histogram: all 8 frequencies live in one 64-bit word) and applies the
-    Kraft-completeness test: sum(count[l] << (7-l)) == 128.
-    """
-    hclen = (
-        bits[cand + _HCLEN_AT].astype(np.uint32)
-        | (bits[cand + _HCLEN_AT + 1].astype(np.uint32) << 1)
-        | (bits[cand + _HCLEN_AT + 2].astype(np.uint32) << 2)
-        | (bits[cand + _HCLEN_AT + 3].astype(np.uint32) << 3)
-    )
-    n_codes = hclen + 4
+# Slots of a search's io array (int64 each), as the library names them.
+_POS, _END, _STRICT, _MOVED, _PARSED, _BAD_DATA, _BAD_DIST, _BAD_LIT = range(8)
 
-    # Packed histogram: bits [5l, 5l+5) hold the count of code length l.
-    histo = np.zeros(cand.shape[0], dtype=np.uint64)
-    kraft = np.zeros(cand.shape[0], dtype=np.uint32)
-    for k in range(19):
-        base = cand + (_PRECODE_AT + 3 * k)
-        cl = (
-            bits[base].astype(np.uint32)
-            | (bits[base + 1].astype(np.uint32) << 1)
-            | (bits[base + 2].astype(np.uint32) << 2)
-        )
-        active = (k < n_codes) & (cl > 0)
-        histo += (active.astype(np.uint64)) << (np.uint64(5) * cl.astype(np.uint64))
-        kraft += np.where(active, (128 >> cl).astype(np.uint32), 0)
+_ARGTYPES = {
+    "rg_find_dynamic": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
+    "rg_find_stored": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
+    "rg_count_dynamic": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p],
+}
 
-    # Kraft equality <=> a valid AND complete ("efficient") code exists.
-    del histo  # retained for parity with the packed-word formulation
-    return kraft == 128
+_stats_lock = threading.Lock()
+_stats: Dict[str, int] = {"calls": 0, "bits": 0, "candidates": 0, "strict_checks": 0}
 
+
+def stats() -> Dict[str, int]:
+    """Process-wide counts of the compiled finder: ``calls``, ``bits``
+    (offsets moved over), ``candidates`` returned, and ``strict_checks``
+    (headers parsed by checks 5-7)."""
+    with _stats_lock:
+        return dict(_stats)
+
+
+class _Search:
+    """One scan's buffer and io array, and its compiled calls (span
+    ``stage1.find`` each, the offsets moved over its ``bits``)."""
+
+    def __init__(self, data):
+        self.src = np.frombuffer(data, dtype=np.uint8)
+        self.io = np.zeros(8, dtype=np.int64)
+        self.counts = np.zeros(5, dtype=np.int64)
+        self._args = (self.src.ctypes.data, self.src.shape[0], self.io.ctypes.data)
+
+    def _call(self, symbol: str, pos: int, end: int, strict: bool = False, *extra) -> None:
+        io = self.io
+        io[_POS], io[_END], io[_STRICT] = pos, end, strict
+        fn = _native.HOST.entry("inflate", symbol, _ARGTYPES[symbol])
+        with _obs_trace.span("stage1.find") as sp:
+            fn(*self._args, *extra)
+            sp.set_attr("bits", int(io[_MOVED]))
+        with _stats_lock:
+            _stats["calls"] += 1
+            _stats["bits"] += int(io[_MOVED])
+
+    def next(self, symbol: str, pos: int, end: int, strict: bool = False) -> int:
+        """The next candidate of ``symbol``'s search from ``pos``, or -1."""
+        self._call(symbol, pos, end, strict)
+        found = int(self.io[_POS])
+        with _stats_lock:
+            _stats["candidates"] += found >= 0
+            _stats["strict_checks"] += int(self.io[_PARSED])
+        return found
+
+    def count(self, start: int, end: int, stats: FilterStats) -> None:
+        """Checks 1-4 of every offset in [start, end) into ``stats``."""
+        self._call("rg_count_dynamic", start, end, False, self.counts.ctypes.data)
+        tested, final, btype, hlit, precode = self.counts.tolist()
+        stats.tested += tested
+        stats.invalid_final += final
+        stats.invalid_type += btype
+        stats.invalid_hlit += hlit
+        stats.invalid_precode_histogram += precode
+
+
+# ---------------------------------------------------------------------------
+# Dynamic Block finder (the production finder)
+# ---------------------------------------------------------------------------
 
 def scan_dynamic_candidates(
     data,
@@ -139,73 +163,34 @@ def scan_dynamic_candidates(
 ) -> Iterator[int]:
     """Yield Dynamic-Block candidate bit offsets in [start_bit, end_bit).
 
-    Lazy/batched: in the common case the caller confirms the first candidate
-    (by decompressing the chunk) and never pulls more, so only the first
-    batch is ever scanned.
+    Lazy: in the common case the caller confirms the first candidate (by
+    decompressing the chunk) and never pulls more, so one compiled call
+    runs. With ``stats``, checks 1-4 are counted a ``batch_bits`` batch at
+    a time as the scan enters it, and checks 5-7 a candidate at a time.
     """
     total_bits = len(data) * 8
     end_bit = min(end_bit, total_bits - _HEADER_PROBE_BITS)
     pos = start_bit
+    if pos < 0 and pos < end_bit:
+        raise ValueError("start_bit must be non-negative, not %d" % start_bit)
+    search = _Search(data)
     while pos < end_bit:
-        batch_end = min(pos + batch_bits, end_bit)
-        n = batch_end - pos
-        # Load bits with margin for the header probe.
-        first_byte = pos // 8
-        last_byte = min((batch_end + _HEADER_PROBE_BITS) // 8 + 1, len(data))
-        bits = _bit_array(data, first_byte, last_byte - first_byte)
-        rel = pos - first_byte * 8
-
-        b0 = bits[rel : rel + n]
-        b1 = bits[rel + 1 : rel + 1 + n]
-        b2 = bits[rel + 2 : rel + 2 + n]
-        # (1) final == 0, (2) type == 0b01 (stream order: 0 then 1).
-        mask = (b0 == 0) & (b1 == 0) & (b2 == 1)
+        batch_end = end_bit if stats is None else min(pos + batch_bits, end_bit)
         if stats is not None:
-            stats.tested += n
-            nf = int(np.count_nonzero(b0))
-            stats.invalid_final += nf
-            nt = int(np.count_nonzero((b0 == 0) & ~((b1 == 0) & (b2 == 1))))
-            stats.invalid_type += nt
-        # (3) HLIT must encode <= 286 literal codes.
-        hlit = _field(bits[rel:], n, _HLIT_AT, 5)
-        bad_hlit = hlit >= 30
-        if stats is not None:
-            stats.invalid_hlit += int(np.count_nonzero(mask & bad_hlit))
-        mask &= ~bad_hlit
-
-        cand = np.nonzero(mask)[0].astype(np.int64) + rel
-        if cand.shape[0]:
-            # (4) precode histogram Kraft check, bit-packed & vectorized.
-            ok = _precode_kraft_mask(bits, cand)
+            search.count(pos, batch_end, stats)
+        while True:
+            cand = search.next("rg_find_dynamic", pos, batch_end, full_validation)
             if stats is not None:
-                stats.invalid_precode_histogram += int(np.count_nonzero(~ok))
-            cand = cand[ok]
-
-        for c in cand:
-            abs_off = int(c) - rel + pos
-            if not full_validation:
-                if stats is not None:
-                    stats.valid += 1
-                yield abs_off
-                continue
-            # (5)-(7): full strict header parse.
-            try:
-                br = BitReader(data, abs_off)
-                br.skip(3)
-                read_dynamic_header(br, strict=True)
-            except (DeflateError, EndOfStream) as exc:
-                if stats is not None:
-                    msg = str(exc)
-                    if msg.startswith("distance code"):
-                        stats.invalid_distance += 1
-                    elif msg.startswith("literal code"):
-                        stats.invalid_literal += 1
-                    else:
-                        stats.invalid_precode_data += 1
-                continue
+                io = search.io
+                stats.invalid_precode_data += int(io[_BAD_DATA])
+                stats.invalid_distance += int(io[_BAD_DIST])
+                stats.invalid_literal += int(io[_BAD_LIT])
+            if cand < 0:
+                break
             if stats is not None:
                 stats.valid += 1
-            yield abs_off
+            yield cand
+            pos = cand + 1
         pos = batch_end
 
 
@@ -224,31 +209,19 @@ def scan_stored_candidates(
 
     Checks: top 3 bits of the preceding byte zero (non-final, type 00, zero
     padding) and LEN == ~NLEN. False-positive rate ~1/512 KiB on random data
-    (paper §3.4.1).
+    (paper §3.4.1). ``batch_bytes`` is kept for the reference's signature:
+    one compiled call scans to the next candidate whatever its distance.
     """
-    n_bytes = len(data)
+    del batch_bytes
     # p is the byte offset of LEN; candidate bit offset is 8p-3.
-    p_min = max(1, (start_bit + 3 + 7) // 8)
-    p_max_total = n_bytes - 4  # LEN+NLEN must fit
-    pos = p_min
-    while pos <= p_max_total:
-        hi = min(pos + batch_bytes, p_max_total + 1)
-        buf = np.frombuffer(data, dtype=np.uint8, count=min(hi + 4, n_bytes) - (pos - 1), offset=pos - 1)
-        m = hi - pos  # number of candidate byte positions in this batch
-        prev = buf[0:m]
-        len_lo = buf[1 : 1 + m].astype(np.uint32)
-        len_hi = buf[2 : 2 + m].astype(np.uint32)
-        nlen_lo = buf[3 : 3 + m].astype(np.uint32)
-        nlen_hi = buf[4 : 4 + m].astype(np.uint32)
-        length = len_lo | (len_hi << 8)
-        nlen = nlen_lo | (nlen_hi << 8)
-        ok = ((prev & 0xE0) == 0) & (length == (~nlen & 0xFFFF))
-        for i in np.nonzero(ok)[0]:
-            p = pos + int(i)
-            off = 8 * p - 3
-            if start_bit <= off < end_bit:
-                yield off
-        pos = hi
+    p = max(1, (start_bit + 3 + 7) // 8)
+    search = _Search(data)
+    while True:
+        p = search.next("rg_find_stored", p, end_bit)
+        if p < 0:
+            return
+        yield 8 * p - 3
+        p += 1
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,12 @@
 // those of repro's Python decoder (src/repro/core/deflate.py), which the
 // tests hold this against.
 //
+// The block finder's candidate search (paper §3.4) lives here too, so its
+// strict checks 5-7 are the decoder's own dynamic_header: rg_find_dynamic
+// returns the next offset that passes the §3.4.2 cascade, rg_find_stored
+// the next canonical Non-Compressed offset, and rg_count_dynamic counts
+// checks 1-4 over a range for FilterStats (core/block_finder.py).
+//
 // Plain C entries, no Python or PyTorch headers: built with the host
 // compiler and loaded with ctypes, which drops the GIL for the call.
 
@@ -518,6 +524,90 @@ int inflate(const uint8_t* data, int64_t n_bytes, int64_t* state, int64_t stop_b
   return status;
 }
 
+// -- the block finder ---------------------------------------------------------
+
+// Offsets of a dynamic header's fields from the block's first bit.
+constexpr int kHlitAt = 3;
+constexpr int kHclenAt = 13;
+constexpr int kPrecodeAt = 17;
+// Offsets of one 64-bit window checked at once: checks 1-2 need bits
+// i..i+2 and HLIT bits i+3..i+7 of a window that holds at least 57.
+constexpr int kWindowOffsets = 48;
+
+// Slots of the finder's io array (int64 each).
+enum FindSlot : int {
+  kFindPos = 0,       // in: first offset (stored: LEN byte); out: the candidate or -1
+  kFindEnd = 1,       // in: end of the range, exclusive
+  kFindStrict = 2,    // in: run checks 5-7
+  kFindMoved = 3,     // out: offsets moved over (stored: in bits)
+  kFindParsed = 4,    // out: headers parsed by checks 5-7
+  kFindBadData = 5,   // out: rejected by the precode data (check 5)
+  kFindBadDist = 6,   // out: rejected by the distance code (check 6)
+  kFindBadLit = 7,    // out: rejected by the literal code (check 7)
+};
+
+// Slots of rg_count_dynamic's counts (FilterStats' checks 1-4).
+enum CountSlot : int {
+  kTested = 0,
+  kBadFinal = 1,
+  kBadType = 2,
+  kBadHlit = 3,
+  kBadPrecode = 4,
+};
+
+inline uint64_t peek_at(const Bits& b, int64_t pos) {
+  Bits at = b;
+  at.pos = pos;
+  return at.peek();
+}
+
+// Offsets i (bit i of the mask) of the window w = peek at p whose first
+// three bits are final 0 and type 0b10 (checks 1-2), among the first n.
+inline uint64_t dynamic_prefix(uint64_t w, int n) {
+  const uint64_t m = ~w & ~(w >> 1) & (w >> 2);
+  return m & ((uint64_t(1) << n) - 1);
+}
+
+// kraft4[v]: the Kraft sum, in units of 2^-7, of the four 3-bit code
+// lengths packed in v (a length of 0 adds nothing).
+const uint16_t* kraft4() {
+  static const std::vector<uint16_t> table = [] {
+    std::vector<uint16_t> t(1 << 12);
+    for (int v = 0; v < (1 << 12); ++v) {
+      for (int k = 0; k < 4; ++k) {
+        const int cl = (v >> (3 * k)) & 7;
+        if (cl) t[v] += 128 >> cl;
+      }
+    }
+    return t;
+  }();
+  return table.data();
+}
+
+// Check 4: the precode's code lengths satisfy Kraft's equality, which
+// holds exactly for a valid and complete code.
+inline bool precode_complete(const Bits& b, int64_t at, const uint16_t* kraft) {
+  const int n_codes = int(peek_at(b, at + kHclenAt) & 15) + 4;
+  // 19 x 3 = 57 bits; the lengths past HCLEN + 4 are not the precode's.
+  const uint64_t lengths = peek_at(b, at + kPrecodeAt) & ((uint64_t(1) << (3 * n_codes)) - 1);
+  int sum = 0;
+  for (int k = 0; k < 60; k += 12) sum += kraft[(lengths >> k) & 0xFFF];
+  return sum == 128;
+}
+
+// Checks 5-7 at an offset that passed 1-4: the strict header parse.
+// Returns 0 or the check that refused it (kFindBadData/Dist/Lit).
+int strict_reject(const Bits& b, int64_t at) {
+  Bits h = b;
+  h.pos = at + 3;
+  int64_t scratch[8];
+  const int st = dynamic_header(h, true, nullptr, nullptr, scratch);
+  if (st == 0) return 0;
+  if (st == kDistanceStatus) return kFindBadDist;
+  if (st == kLiteralStatus || st == kNoEndOfBlock) return kFindBadLit;
+  return kFindBadData;
+}
+
 }  // namespace
 
 extern "C" {
@@ -546,6 +636,111 @@ int rg_dynamic_header(const uint8_t* data, int64_t n_bytes, int64_t* state, int 
   const int status = dynamic_header(b, strict != 0, nullptr, nullptr, state);
   if (status == 0) state[kPos] = b.pos;
   return status;
+}
+
+// The first offset in [io[kFindPos], io[kFindEnd]) that passes checks 1-4
+// (final bit, type, HLIT < 30, the precode's Kraft equality) and, if
+// io[kFindStrict], checks 5-7, into io[kFindPos] (-1 if none), with the
+// offsets moved over and the strict checks' counts. The caller keeps every
+// offset within 74 bits of the data's end out of the range.
+int rg_find_dynamic(const uint8_t* data, int64_t n_bytes, int64_t* io) {
+  const Bits b{data, n_bytes, n_bytes * 8, 0};
+  const int64_t start = io[kFindPos], end = io[kFindEnd];
+  const bool strict = io[kFindStrict] != 0;
+  const uint16_t* kraft = kraft4();
+  for (int s = kFindParsed; s <= kFindBadLit; ++s) io[s] = 0;
+  for (int64_t p = start; p < end; p += kWindowOffsets) {
+    const int n = end - p < kWindowOffsets ? int(end - p) : kWindowOffsets;
+    const uint64_t w = peek_at(b, p);
+    for (uint64_t m = dynamic_prefix(w, n); m; m &= m - 1) {
+      const int i = __builtin_ctzll(m);
+      if (((w >> (i + kHlitAt)) & 31) >= 30) continue;
+      if (!precode_complete(b, p + i, kraft)) continue;
+      if (strict) {
+        ++io[kFindParsed];
+        const int reject = strict_reject(b, p + i);
+        if (reject) {
+          ++io[reject];
+          continue;
+        }
+      }
+      io[kFindPos] = p + i;
+      io[kFindMoved] = p + i + 1 - start;
+      return 0;
+    }
+  }
+  io[kFindPos] = -1;
+  io[kFindMoved] = end > start ? end - start : 0;
+  return 0;
+}
+
+// FilterStats' checks 1-4 over every offset of [io[kFindPos],
+// io[kFindEnd]), as the reference counts a batch: counts[kTested..
+// kBadPrecode] (set, not added).
+int rg_count_dynamic(const uint8_t* data, int64_t n_bytes, int64_t* io, int64_t* counts) {
+  const Bits b{data, n_bytes, n_bytes * 8, 0};
+  const int64_t start = io[kFindPos], end = io[kFindEnd];
+  io[kFindMoved] = end > start ? end - start : 0;
+  const uint16_t* kraft = kraft4();
+  for (int s = kTested; s <= kBadPrecode; ++s) counts[s] = 0;
+  for (int64_t p = start; p < end; p += kWindowOffsets) {
+    const int n = end - p < kWindowOffsets ? int(end - p) : kWindowOffsets;
+    const uint64_t w = peek_at(b, p);
+    const uint64_t in_range = (uint64_t(1) << n) - 1;
+    const uint64_t prefix = dynamic_prefix(w, n);
+    counts[kTested] += n;
+    counts[kBadFinal] += __builtin_popcountll(w & in_range);
+    counts[kBadType] += __builtin_popcountll(~w & in_range) - __builtin_popcountll(prefix);
+    for (uint64_t m = prefix; m; m &= m - 1) {
+      const int i = __builtin_ctzll(m);
+      if (((w >> (i + kHlitAt)) & 31) >= 30) {
+        ++counts[kBadHlit];
+      } else if (!precode_complete(b, p + i, kraft)) {
+        ++counts[kBadPrecode];
+      }
+    }
+  }
+  return 0;
+}
+
+// The first LEN byte p >= io[kFindPos], p <= n_bytes - 4, whose canonical
+// Non-Compressed offset 8p - 3 lies before io[kFindEnd], with the byte
+// before it zero in its top 3 bits (non-final, type 00, zero padding) and
+// LEN == ~NLEN (paper §3.4.1), into io[kFindPos] (-1 if none).
+int rg_find_stored(const uint8_t* data, int64_t n_bytes, int64_t* io) {
+  const int64_t start = io[kFindPos], end_bit = io[kFindEnd];
+  int64_t last = n_bytes - 4;
+  if (last > (end_bit + 2) / 8) last = (end_bit + 2) / 8;  // 8p - 3 < end_bit
+  // Eight LEN bytes a step: y's byte j is zero where LEN's low byte at
+  // p + j is NLEN's complemented, z's where both of LEN's bytes are; a
+  // step with no zero byte in z holds no candidate.
+  constexpr uint64_t kLow7 = 0x7F7F7F7F7F7F7F7Full;
+  for (int64_t p = start; p <= last;) {
+    if (p + 7 <= last && p + 10 < n_bytes) {
+      uint64_t a, c;
+      std::memcpy(&a, data + p, 8);
+      std::memcpy(&c, data + p + 2, 8);
+      const uint64_t y = ~(a ^ c);
+      const uint64_t y8 = uint64_t(0xFF ^ data[p + 8] ^ data[p + 10]);
+      const uint64_t z = y | (y >> 8) | (y8 << 56);
+      // Each byte's high bit set where that byte of z is nonzero.
+      if ((((z & kLow7) + kLow7) | z | kLow7) == ~uint64_t(0)) {
+        p += 8;
+        continue;
+      }
+    }
+    const int64_t stop = p + 8 <= last + 1 ? p + 8 : last + 1;
+    for (; p < stop; ++p) {
+      if ((data[p] ^ data[p + 2]) != 0xFF || (data[p + 1] ^ data[p + 3]) != 0xFF) continue;
+      if (data[p - 1] & 0xE0) continue;
+      io[kFindPos] = p;
+      io[kFindMoved] = 8 * (p + 1 - start);
+      return 0;
+    }
+  }
+  io[kFindPos] = -1;
+  io[kFindMoved] = last >= start ? 8 * (last + 1 - start) : 0;
+  return 0;
 }
 
 }  // extern "C"

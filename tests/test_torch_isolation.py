@@ -5,10 +5,11 @@ pass checks every import statement of the port, of ``chip_smoke.py``, of the
 port's examples (``examples/*_torch.py``) and of ``tools/engine_sweep.py``.
 The host modules the port copied must stay byte-identical to the reference
 (their imports are all relative), so a fix in one is seen in both.
-``core/deflate.py`` is not among them: the port decodes stage 1 in compiled
-host code, and ``tests/test_torch_stage1_native.py`` holds it to the
-reference's decoder instead (the port has no ``core/huffman.py``: the
-compiled decoder builds its own tables).
+``core/deflate.py`` and ``core/block_finder.py`` are not among them: the
+port decodes stage 1 and searches for its block candidates in compiled host
+code, and ``tests/test_torch_stage1_native.py`` holds both to the
+reference's decoder and finder instead (the port has no ``core/huffman.py``:
+the compiled decoder builds its own tables).
 """
 
 import ast
@@ -27,7 +28,7 @@ PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
 
 # Copies whose every line, imports included, equals the reference's.
 VERBATIM = [
-    "core/bitreader.py", "core/block_finder.py", "core/cache.py",
+    "core/bitreader.py", "core/cache.py",
     "core/chunk_fetcher.py", "core/codec.py", "core/crc32.py",
     "core/errors.py", "core/filereader.py",
     "core/gzip_format.py", "core/index.py",

@@ -11,6 +11,8 @@ and message. Inputs are small: the reference decodes about 0.5 MB/s.
 
 import base64
 import ctypes
+import functools
+import itertools
 import os
 import subprocess
 import sys
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
+from repro.core import block_finder as ref_finder
 from repro.core import deflate as ref_deflate
 from repro.core.bitreader import BitReader as RefBitReader
 from repro.core.block_finder import CombinedBlockFinder as RefFinder
@@ -36,6 +39,7 @@ from repro.core.synth import (
     stored_only_compress,
 )
 from repro_torch import _native
+from repro_torch.core import block_finder as port_finder
 from repro_torch.core import deflate as port_deflate
 from repro_torch.core.bitreader import BitReader as PortBitReader
 from repro_torch.core.block_finder import CombinedBlockFinder as PortFinder
@@ -664,6 +668,169 @@ def test_finder_candidates_and_stats_equal_reference(producer):
 
 
 # ---------------------------------------------------------------------------
+# The block finder's compiled search against the reference's NumPy scans
+# ---------------------------------------------------------------------------
+
+
+def sync_flush_gzip(data, every=3000):
+    """A gzip member with a ``Z_SYNC_FLUSH`` (an empty stored block) every
+    ``every`` bytes: dynamic blocks and stored ones side by side."""
+    c = zlib.compressobj(6, zlib.DEFLATED, 31)
+    parts = [c.compress(data[i : i + every]) + c.flush(zlib.Z_SYNC_FLUSH)
+             for i in range(0, len(data), every)]
+    return b"".join(parts) + c.flush()
+
+
+@functools.lru_cache(maxsize=None)
+def finder_data(kind):
+    if kind == "random-200k":  # 1.6 Mbit: four batches of 2^19 offsets
+        return make_random(_rng("finder", kind), 200_000)
+    text = corpus("b64-lines", 60_000, "finder", kind)
+    return {"gzip-6": lambda: gzip_compress(text, 6), "stored-only": lambda: stored_only_compress(text),
+            "sync-flush": lambda: sync_flush_gzip(text)}[kind]()
+
+
+FINDER_KINDS = ["random-200k", "gzip-6", "stored-only", "sync-flush"]
+
+
+def finder_outcome(module, data, start, end, full_validation=True):
+    """The dynamic scan's candidates and ``FilterStats``; with full
+    validation also the stored scan's and the merged finder's."""
+    stats = module.FilterStats()
+    dyn = list(module.scan_dynamic_candidates(data, start, end, stats=stats,
+                                              full_validation=full_validation))
+    out = {"dynamic": dyn, "stats": stats.as_dict()}
+    if full_validation:
+        out["stored"] = list(module.scan_stored_candidates(data, start, end))
+        out["combined"] = list(module.CombinedBlockFinder(data, start, end))
+    return out
+
+
+def same_finder(data, start, end, **kw):
+    want = finder_outcome(ref_finder, data, start, end, **kw)
+    assert finder_outcome(port_finder, data, start, end, **kw) == want, (start, end)
+    return want
+
+
+@pytest.mark.parametrize("full_validation", [True, False])
+@pytest.mark.parametrize("start", [0, 7, 12_345])
+@pytest.mark.parametrize("kind", FINDER_KINDS)
+def test_finder_whole_range_equal_reference(kind, start, full_validation):
+    """From aligned and unaligned starts to the end: every batch of a
+    range of 2-4 batches, where stored and dynamic candidates meet."""
+    data = finder_data(kind)
+    want = same_finder(data, start, len(data) * 8, full_validation=full_validation)
+    # Random bytes hold Kraft survivors but no whole dynamic header.
+    assert want["dynamic"] or kind == "stored-only" or (full_validation and kind == "random-200k")
+    if full_validation and kind in ("stored-only", "sync-flush"):
+        assert want["stored"]
+        # The merge's dedupe: an offset both scans yield appears once.
+        assert len(want["combined"]) == len(set(want["dynamic"]) | set(want["stored"]))
+
+
+@pytest.mark.parametrize("kind", FINDER_KINDS)
+def test_finder_short_empty_and_end_ranges_equal_reference(kind):
+    """Ranges inside one batch, empty and reversed ranges, and ends at,
+    inside and past the 74 bits a header probe needs at the buffer's end."""
+    data = finder_data(kind)
+    total = len(data) * 8
+    ranges = [(1, 3001), (4_097, 44_097), (8_003, 8_003), (9_000, 8_000), (total, total + 64)]
+    for back in (0, 1, 3, 73, 74, 75, 81, 200):
+        ranges += [(total - 4_000 - back, total - back), (total - back - 1, total - back)]
+    ranges += [(total - 5, total), (total - 80, 10 ** 12)]
+    # Ranges that end or start at a candidate and one bit past it.
+    whole = finder_outcome(ref_finder, data, 0, total)
+    for c in whole["stored"][:3] + whole["dynamic"][:3]:
+        ranges += [(c - 900, c), (c - 900, c + 1), (c, c + 900), (c + 1, c + 900)]
+    for start, end in ranges:
+        same_finder(data, max(start, 0), end)
+        same_finder(data, max(start, 0), end, full_validation=False)
+
+
+@pytest.mark.parametrize("full_validation", [True, False])
+@pytest.mark.parametrize("kind", FINDER_KINDS)
+def test_finder_stats_after_partial_pulls(kind, full_validation):
+    """``FilterStats`` after the first 1, 2 and 5 candidates, from the
+    dynamic scan and from the merged finder (which pulls one ahead)."""
+    data = finder_data(kind)
+    for start in (0, 5, 333_333):
+        for n in (1, 2, 5):
+            got = []
+            for module in (ref_finder, port_finder):
+                stats = module.FilterStats()
+                scan = module.scan_dynamic_candidates(data, start, len(data) * 8, stats=stats,
+                                                      full_validation=full_validation)
+                cands = list(itertools.islice(scan, n))
+                merged_stats = module.FilterStats()
+                merged = list(itertools.islice(
+                    module.CombinedBlockFinder(data, start, len(data) * 8, stats=merged_stats), n))
+                got.append((cands, stats.as_dict(), merged, merged_stats.as_dict()))
+            assert got[0] == got[1], (start, n)
+
+
+def strict_case(lit, dist, shift, **kw):
+    """A non-final dynamic header ``shift`` zero bits into a buffer."""
+    w = BitWriter().put(0, shift)
+    dynamic(w, lit, list(dist), final=0, **kw)
+    return w.tobytes(pad=24)
+
+
+STRICT_CASES = {
+    "valid": dict(lit=AB, dist=(1, 1)),
+    "distance-incomplete": dict(lit=AB, dist=(1,)),
+    "distance-oversubscribed": dict(lit=AB, dist=(1, 1, 1)),
+    "literal-incomplete": dict(lit=lit_lengths(a=2, b=2, eob=2, len3=3), dist=(1, 1)),
+    "literal-no-eob": dict(lit=lit_lengths(a=2, b=2, c=2, len3=2), dist=(1, 1)),
+    "literal-empty": dict(lit=[0] * 258, dist=(1, 1)),
+    "repeat-first": dict(lit=AB, dist=(1, 1), symbols=[(16, 0, 2)]),
+    "hdist-30": dict(lit=AB, dist=(1, 1), hdist=30),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STRICT_CASES))
+def test_finder_strict_checks_count_as_reference(name):
+    """Each of checks 5-7 refusing a header that passed 1-4, at shifts
+    inside a byte: the same candidates and the same ``FilterStats``."""
+    for shift in (0, 3, 13):
+        data = strict_case(shift=shift, **STRICT_CASES[name])
+        want = same_finder(data, 0, len(data) * 8)
+        assert shift in same_finder(data, 0, len(data) * 8, full_validation=False)["dynamic"]
+        assert (shift in want["dynamic"]) == (name == "valid")
+        check = {"valid": "valid", "distance": "invalid_distance",
+                 "literal": "invalid_literal"}.get(name.split("-")[0], "invalid_precode_data")
+        assert want["stats"][check] >= 1
+
+
+@functools.lru_cache(maxsize=None)
+def cell_like_file():
+    """The read cell's kind of file at 3.5 MiB of text: base64 lines at gzip -6."""
+    return gzip_compress(make_b64_lines(_rng("cell-like"), 7 << 19), 6)
+
+
+def margin_slice(comp, k, chunk=1 << 20):
+    """Chunk k's buffer as the fetcher's ``_margins`` cuts it from a source
+    without a view (one chunk and a 2 MiB margin), with its local range."""
+    start, stop = k * chunk, (k + 1) * chunk
+    return comp[start : min(stop + 2 * chunk, len(comp))], 0, (stop - start) * 8
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_finder_on_the_cell_kind_of_chunk(k):
+    """Chunks of the read cell's kind of file sliced as the first pass
+    slices them: the first candidates and the stats after each pull; the
+    whole chunk's lists for one chunk."""
+    buf, start, end = margin_slice(cell_like_file(), k)
+    got = []
+    for module in (ref_finder, port_finder):
+        stats = module.FilterStats()
+        finder = module.CombinedBlockFinder(buf, start, end, stats=stats)
+        got.append([(c, stats.as_dict()) for c in itertools.islice(finder, 5)])
+    assert got[0] == got[1]
+    if k == 1:
+        same_finder(buf, start, end)
+
+
+# ---------------------------------------------------------------------------
 # The library, its counters and its span
 # ---------------------------------------------------------------------------
 
@@ -682,8 +849,8 @@ def test_library_is_built_by_the_host_compiler():
 
 
 def test_stage1_imports_neither_torch_nor_kernels():
-    """``core`` is the host layer: decoding builds and loads the library
-    without importing torch or ``repro_torch.kernels``."""
+    """``core`` is the host layer: decoding and the block finder build and
+    load the library without importing torch or ``repro_torch.kernels``."""
     code = (
         "import sys\n"
         "from repro_torch.core import deflate\n"
@@ -697,6 +864,11 @@ def test_stage1_imports_neither_torch_nor_kernels():
         "    deflate.read_dynamic_header(BitReader(bytes(64)), strict=True)\n"
         "except Exception:\n"
         "    pass\n"
+        "from repro_torch.core.block_finder import CombinedBlockFinder\n"
+        "c = zlib.compressobj(6, zlib.DEFLATED, 31)\n"
+        "text = b' '.join(b'%d' % (i * i) for i in range(3000))\n"
+        "comp = c.compress(text) + c.flush(zlib.Z_SYNC_FLUSH) + c.compress(text) + c.flush()\n"
+        "assert next(CombinedBlockFinder(comp, 0, len(comp) * 8)) == 80\n"
         "bad = sorted(m for m in sys.modules if m == 'torch' or m.startswith('torch.')\n"
         "             or m.startswith('repro_torch.kernels'))\n"
         "assert not bad, bad\n"
@@ -779,3 +951,98 @@ def test_threads_decode_at_once():
     assert after["symbols"] - before["symbols"] == n_threads * rounds * len(data)
     per_decode = {k: after[k] - before[k] for k in ("calls", "blocks", "regrowths")}
     assert all(v % (n_threads * rounds) == 0 and v > 0 for v in per_decode.values()), per_decode
+
+
+def _finder_calls(data, start, end):
+    """The merged finder's candidates, with the counters and spans it added."""
+    from repro_torch.obs import trace
+
+    before = port_finder.stats()
+    trace.reset_tracing()
+    trace.enable_tracing()
+    try:
+        cands = list(PortFinder(data, start, end))
+        spans = [s for s in trace.drain_spans() if s["name"] == "stage1.find"]
+    finally:
+        trace.disable_tracing()
+        trace.reset_tracing()
+    after = port_finder.stats()
+    return cands, {k: after[k] - before[k] for k in before}, spans
+
+
+@pytest.mark.parametrize("kind", ["sync-flush", "stored-only"])
+def test_find_span_and_stats_count_a_known_stream(kind):
+    """One ``stage1.find`` span a compiled call, its ``bits`` the offsets
+    moved over; ``stats()`` counts one call a candidate and one a scan's
+    end, each scan's whole range, and the reference's strict checks."""
+    data = finder_data(kind)
+    start, end = 11, len(data) * 8
+    cands, delta, spans = _finder_calls(data, start, end)
+    want = finder_outcome(ref_finder, data, start, end)
+    assert cands == want["combined"]
+    n_dyn, n_stored = len(want["dynamic"]), len(want["stored"])
+    assert delta["calls"] == len(spans) == n_dyn + 1 + n_stored + 1
+    assert delta["candidates"] == n_dyn + n_stored
+    st = want["stats"]
+    assert delta["strict_checks"] == (st["invalid_precode_data"] + st["invalid_distance"]
+                                      + st["invalid_literal"] + st["valid"])
+    dyn_bits = min(end, len(data) * 8 - 74) - start
+    stored_bits = 8 * (min(len(data) - 4, (end + 2) // 8) - (start + 10) // 8 + 1)
+    assert delta["bits"] == sum(s["attrs"]["bits"] for s in spans) == dyn_bits + stored_bits
+
+
+def test_first_candidate_takes_three_calls():
+    """The read path's common case: the merged finder's first candidate is
+    the chunk's block, found in one call of each scan, and the merge pulls
+    the dynamic scan's next one ahead, as the reference's does."""
+    buf, start, end = margin_slice(cell_like_file(), 2)
+    before = port_finder.stats()
+    first = next(PortFinder(buf, start, end))
+    after = port_finder.stats()
+    assert first == next(RefFinder(buf, start, end))
+    assert after["calls"] - before["calls"] == 3
+
+
+def test_threads_find_at_once():
+    """Sixteen threads, two on each of eight chunks, each finding every
+    candidate of its chunk, at once and switching often: the lists one
+    thread finds, and the counters lose no update."""
+    comp = cell_like_file()
+    chunk = len(comp) // 8
+    jobs = [margin_slice(comp, k, chunk) for k in range(8)]
+    alone = [list(PortFinder(*job)) for job in jobs]
+    assert all(alone) and alone[3] == list(RefFinder(*jobs[3]))
+    per_pass = port_finder.stats()
+    for job in jobs:
+        list(PortFinder(*job))
+    after = port_finder.stats()
+    per_pass = {k: after[k] - per_pass[k] for k in after}
+    n_threads, rounds, results, errors = 16, 3, {}, []
+
+    def work(t):
+        try:
+            results[t] = [list(PortFinder(*jobs[t % 8])) for _ in range(rounds)]
+        except Exception as exc:  # re-raised below, in the test's thread
+            errors.append(exc)
+
+    before = port_finder.stats()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(t,)) for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[0]
+    assert [results[t] for t in range(n_threads)] == [[alone[t % 8]] * rounds for t in range(n_threads)]
+    after = port_finder.stats()
+    assert {k: after[k] - before[k] for k in after} == {k: 2 * rounds * v for k, v in per_pass.items()}
+
+
+def test_numpy_scans_are_gone():
+    for name in ("_bit_array", "_field", "_precode_kraft_mask"):
+        assert not hasattr(port_finder, name)
